@@ -1,0 +1,388 @@
+"""FlowLM: text -> acoustic latents (port of ptts_tpu/models/flowlm.py).
+
+Every function mirrors its JAX namesake and takes the weights first: ``w``
+is the module from ptts_torch.convert.flowlm_weights, whose buffers carry
+the JAX host dict's names (``w.in_proj`` is ``w["in_proj"]`` there). The
+per-frame loop is a Python loop over frames that stops once every stream is
+done; the prompt prefill runs the fused RoPE + causal attention kernel
+(ops/cuda/fused_attention.causal_attention_qkv); the per-frame decode
+attention is the plain masked einsum, as the JAX package leaves it to XLA.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ptts_tpu.config import FlowLMConfig
+
+from ..ops.activations import gelu_erf, silu
+from ..ops.attention import decode_attention_masked
+from ..ops.cuda.fused_attention import causal_attention_qkv
+from ..ops.norms import kyutai_rmsnorm, layernorm
+from ..ops.rope import rope_rotate_halves
+
+# ---------------------------------------------------------------------------
+# Weight loading (numpy; returns the same host dict as the JAX load_weights)
+# ---------------------------------------------------------------------------
+
+
+def _find(st, name: str):
+    """exact -> 'flow_lm.' prefix -> suffix fallback."""
+    t = st.find(name)
+    if t is not None:
+        return t
+    t = st.find("flow_lm." + name)
+    if t is not None:
+        return t
+    for cand in st.tensors:
+        if cand.name.endswith(name):
+            return cand
+    return None
+
+
+def _get(st, name: str, optional: bool = False) -> Optional[np.ndarray]:
+    t = _find(st, name)
+    if t is None:
+        if optional:
+            return None
+        raise KeyError(f"Missing tensor: {name}")
+    return st.get_f32(t)
+
+
+def load_weights(st, cfg: FlowLMConfig = FlowLMConfig()) -> dict:
+    """The FlowLM host dict (f32 numpy) from a SafetensorsFile; leaf for leaf
+    the dict ptts_tpu.models.flowlm.load_weights returns."""
+    L, D = cfg.num_layers, cfg.flow_depth
+
+    def stack(fmt: str, n: int = L, optional: bool = False):
+        vals = [_get(st, fmt.format(i), optional=optional) for i in range(n)]
+        return None if any(v is None for v in vals) else np.stack(vals)
+
+    tl = "transformer.layers.{}."
+    te = "flow_net.time_embed.{}."
+    rb = "flow_net.res_blocks.{}."
+    return {
+        "embed": _get(st, "conditioner.embed.weight"),
+        "speaker_proj": _get(st, "speaker_proj_weight", optional=True),
+        "emb_std": _get(st, "emb_std"),
+        "emb_mean": _get(st, "emb_mean"),
+        "bos_emb": _get(st, "bos_emb"),
+        "input_linear": _get(st, "input_linear.weight"),
+        "out_norm_w": _get(st, "out_norm.weight"),
+        "out_norm_b": _get(st, "out_norm.bias"),
+        "out_eos_w": _get(st, "out_eos.weight").reshape(-1),
+        "out_eos_b": _get(st, "out_eos.bias").reshape(()),
+        "in_proj": stack(tl + "self_attn.in_proj.weight"),
+        "out_proj": stack(tl + "self_attn.out_proj.weight"),
+        "norm1_w": stack(tl + "norm1.weight"),
+        "norm1_b": stack(tl + "norm1.bias"),
+        "norm2_w": stack(tl + "norm2.weight"),
+        "norm2_b": stack(tl + "norm2.bias"),
+        "linear1": stack(tl + "linear1.weight"),
+        "linear2": stack(tl + "linear2.weight"),
+        "flow": {
+            "cond_w": _get(st, "flow_net.cond_embed.weight"),
+            "cond_b": _get(st, "flow_net.cond_embed.bias"),
+            "input_w": _get(st, "flow_net.input_proj.weight"),
+            "input_b": _get(st, "flow_net.input_proj.bias"),
+            "time": {
+                "lin0_w": stack(te + "mlp.0.weight", 2),
+                "lin0_b": stack(te + "mlp.0.bias", 2),
+                "lin2_w": stack(te + "mlp.2.weight", 2),
+                "lin2_b": stack(te + "mlp.2.bias", 2),
+                "rms_alpha": stack(te + "mlp.3.alpha", 2),
+                "freqs": stack(te + "freqs", 2, optional=True),
+            },
+            "res": {
+                "in_ln_w": stack(rb + "in_ln.weight", D),
+                "in_ln_b": stack(rb + "in_ln.bias", D),
+                "mlp0_w": stack(rb + "mlp.0.weight", D),
+                "mlp0_b": stack(rb + "mlp.0.bias", D),
+                "mlp2_w": stack(rb + "mlp.2.weight", D),
+                "mlp2_b": stack(rb + "mlp.2.bias", D),
+                "ada_w": stack(rb + "adaLN_modulation.1.weight", D),
+                "ada_b": stack(rb + "adaLN_modulation.1.bias", D),
+            },
+            "final_linear_w": _get(st, "flow_net.final_layer.linear.weight"),
+            "final_linear_b": _get(st, "flow_net.final_layer.linear.bias"),
+            "final_ada_w": _get(st, "flow_net.final_layer.adaLN_modulation.1.weight"),
+            "final_ada_b": _get(st, "flow_net.final_layer.adaLN_modulation.1.bias"),
+        },
+    }
+
+
+# ---------------------------------------------------------------------------
+# Model math
+# ---------------------------------------------------------------------------
+
+
+def _linear(w: torch.Tensor, b: Optional[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """x @ w.T + b in the wider of the two dtypes, returned in x's dtype
+    (f32 time embeddings meet bf16 weights in bf16 mode)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    y = F.linear(x.to(dt), w.to(dt), None if b is None else b.to(dt))
+    return y.to(x.dtype)
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Batched per-layer KV cache, [L, B, Tmax, H, D].
+
+    Cursor-aligned as in the JAX package: every stream's step-i key lands in
+    the same column, and a stream's column t is valid iff t < prefix_len[b]
+    or it holds a decode write at or after start[b]. Decode columns form a
+    ring of R = Tmax - t0 columns after the prefix region; the offline path
+    sizes the cache prefix + frames, so it never wraps. ``cursor`` and ``t0``
+    are host integers (the frame loop runs on the host). decode_step writes
+    k and v IN PLACE and returns the cache with the cursor advanced."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    prefix_len: torch.Tensor  # [B] int32
+    start: torch.Tensor       # [B] int32
+    cursor: int               # next decode write (monotonic)
+    t0: int                   # first decode column
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def pos(self) -> torch.Tensor:
+        """[B] token position of the next write."""
+        return self.prefix_len + (self.cursor - self.start)
+
+    @property
+    def write_col(self) -> int:
+        """Ring column of the next decode write."""
+        R = max(self.max_len - self.t0, 1)
+        return self.t0 + (self.cursor - self.t0) % R
+
+    def valid_mask(self, through_cursor: bool = True) -> torch.Tensor:
+        """[B, Tmax] bool key validity (incl. the write at ``cursor`` when
+        ``through_cursor``); ring column j holds the latest decode write m
+        with m % R == j."""
+        t = torch.arange(self.max_len, device=self.k.device)[None, :]
+        hi = self.cursor + 1 if through_cursor else self.cursor
+        R = max(self.max_len - self.t0, 1)
+        M = hi - self.t0
+        j = t - self.t0
+        abs_idx = self.t0 + M - 1 - torch.remainder(M - 1 - j, R)
+        dec_valid = ((j >= 0) & (j < min(M, R))
+                     & (abs_idx >= self.start[:, None]) & (abs_idx < hi))
+        return (t < self.prefix_len[:, None]) | dec_valid
+
+
+def prefill_kv(w, x: torch.Tensor, lengths: torch.Tensor, cfg: FlowLMConfig
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched causal prompt pass over x [B, T, d] with [B] int32 valid
+    lengths. Returns (k [L, B, T, H, D], v, last [B, d])."""
+    B, T, d = x.shape
+    H, D = cfg.num_heads, cfg.head_dim
+    ks, vs = [], []
+    for l in range(cfg.num_layers):
+        xn = layernorm(x, w.norm1_w[l], w.norm1_b[l], cfg.ln_eps)
+        qkv = _linear(w.in_proj[l], None, xn)
+        attn, k_rot = causal_attention_qkv(qkv, lengths, num_heads=H, head_dim=D,
+                                           max_period=cfg.max_period)
+        ks.append(k_rot.reshape(B, T, H, D))
+        vs.append(qkv[..., 2 * d :].reshape(B, T, H, D))
+        x = x + _linear(w.out_proj[l], None, attn)
+        xn = layernorm(x, w.norm2_w[l], w.norm2_b[l], cfg.ln_eps)
+        x = x + _linear(w.linear2[l], None, gelu_erf(_linear(w.linear1[l], None, xn)))
+    last = x[torch.arange(B, device=x.device), lengths.long() - 1]
+    return torch.stack(ks), torch.stack(vs), last
+
+
+def prefill_init(w, x: torch.Tensor, lengths: torch.Tensor, cfg: FlowLMConfig,
+                 max_len: int) -> Tuple[KVCache, torch.Tensor]:
+    """Prompt pass that builds a [L, B, max_len, H, D] cache holding the
+    prompt's K/V in its first T columns."""
+    B, T, _ = x.shape
+    k_new, v_new, last = prefill_kv(w, x, lengths, cfg)
+    shape = (cfg.num_layers, B, max_len, cfg.num_heads, cfg.head_dim)
+    k = x.new_zeros(shape)
+    v = x.new_zeros(shape)
+    k[:, :, :T] = k_new
+    v[:, :, :T] = v_new
+    cache = KVCache(k=k, v=v, prefix_len=lengths.to(torch.int32),
+                    start=torch.full((B,), T, dtype=torch.int32, device=x.device),
+                    cursor=T, t0=T)
+    return cache, last
+
+
+def decode_step(w, cache: KVCache, x: torch.Tensor, cfg: FlowLMConfig
+                ) -> Tuple[KVCache, torch.Tensor]:
+    """One KV-cached transformer step for B streams [B, d] at their own
+    positions; writes each layer's k/v at the cursor column in place."""
+    B, d = x.shape
+    H, D = cfg.num_heads, cfg.head_dim
+    pos = cache.pos
+    col = cache.write_col
+    mask = cache.valid_mask(through_cursor=True)
+    for l in range(cfg.num_layers):
+        xn = layernorm(x, w.norm1_w[l], w.norm1_b[l], cfg.ln_eps)
+        qkv = _linear(w.in_proj[l], None, xn)
+        q, k, v = (qkv[:, i * d : (i + 1) * d].reshape(B, 1, H, D) for i in range(3))
+        q, k = rope_rotate_halves(q, k, pos[:, None], cfg.max_period)
+        cache.k[l, :, col] = k[:, 0].to(cache.k.dtype)
+        cache.v[l, :, col] = v[:, 0].to(cache.v.dtype)
+        attn = decode_attention_masked(q[:, 0], cache.k[l], cache.v[l], mask)
+        x = x + _linear(w.out_proj[l], None, attn.reshape(B, d))
+        xn = layernorm(x, w.norm2_w[l], w.norm2_b[l], cfg.ln_eps)
+        x = x + _linear(w.linear2[l], None, gelu_erf(_linear(w.linear1[l], None, xn)))
+    return dataclasses.replace(cache, cursor=cache.cursor + 1), x
+
+
+# ---------------------------------------------------------------------------
+# Flow net + LSD sampler
+# ---------------------------------------------------------------------------
+
+
+def timestep_embed(w, idx: int, t: torch.Tensor, cfg: FlowLMConfig) -> torch.Tensor:
+    """Sinusoidal timestep embedding + MLP + kyutai RMSNorm; t: [S] (f32)."""
+    tw = w.flow.time
+    if tw.freqs is not None:
+        freqs = tw.freqs[idx]
+    else:
+        i = torch.arange(cfg.time_freqs, dtype=torch.float32, device=t.device)
+        freqs = torch.exp(-math.log(cfg.max_period) * (i / cfg.time_freqs))
+    angle = t.float()[..., None] * freqs
+    emb = torch.cat([torch.cos(angle), torch.sin(angle)], dim=-1)
+    h = silu(_linear(tw.lin0_w[idx], tw.lin0_b[idx], emb))
+    out = _linear(tw.lin2_w[idx], tw.lin2_b[idx], h)
+    return kyutai_rmsnorm(out, tw.rms_alpha[idx], cfg.rms_eps)
+
+
+def lsd_time_embeds(w, num_steps: int, cfg: FlowLMConfig) -> torch.Tensor:
+    """(ts + tt) / 2 per Euler step, [num_steps, flow_dim]: the step grid is
+    static, so this is computed once per generate call, not per frame."""
+    i = torch.arange(num_steps, dtype=torch.float32, device=w.flow.cond_w.device)
+    ts = timestep_embed(w, 0, i / num_steps, cfg)
+    tt = timestep_embed(w, 1, (i + 1) / num_steps, cfg)
+    return (ts + tt) * 0.5
+
+
+def flow_net(w, cond_emb: torch.Tensor, time_emb: torch.Tensor, x_in: torch.Tensor,
+             cfg: FlowLMConfig) -> torch.Tensor:
+    """adaLN-modulated residual MLP stack: cond_emb [B, fd], time_emb [fd],
+    x_in [B, latent] -> flow [B, latent]."""
+    fw = w.flow
+    fd = cfg.flow_dim
+    x = _linear(fw.input_w, fw.input_b, x_in)
+    mod = silu(time_emb.to(cond_emb.dtype) + cond_emb)
+    res = fw.res
+    for b in range(cfg.flow_depth):
+        h = layernorm(x, res.in_ln_w[b], res.in_ln_b[b], cfg.flow_ln_eps)
+        ada = _linear(res.ada_w[b], res.ada_b[b], mod)
+        shift, scale, gate = ada[..., :fd], ada[..., fd : 2 * fd], ada[..., 2 * fd :]
+        h = h * (1.0 + scale) + shift
+        h = _linear(res.mlp2_w[b], res.mlp2_b[b], silu(_linear(res.mlp0_w[b], res.mlp0_b[b], h)))
+        x = x + gate * h
+    h = layernorm(x, None, None, cfg.flow_ln_eps)
+    ada2 = _linear(fw.final_ada_w, fw.final_ada_b, mod)
+    h = h * (1.0 + ada2[..., fd:]) + ada2[..., :fd]
+    return _linear(fw.final_linear_w, fw.final_linear_b, h)
+
+
+def lsd_decode(w, cond: torch.Tensor, time_embs: torch.Tensor, x: torch.Tensor,
+               cfg: FlowLMConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Euler sampler from noise x [B, latent]. Returns (latent, first_flow)."""
+    fw = w.flow
+    cond_emb = _linear(fw.cond_w, fw.cond_b, cond)
+    num_steps = time_embs.shape[0]
+    first = None
+    for i in range(num_steps):
+        flow = flow_net(w, cond_emb, time_embs[i], x, cfg)
+        if first is None:
+            first = flow
+        x = x + flow / num_steps
+    return x, first
+
+
+# ---------------------------------------------------------------------------
+# Generation
+# ---------------------------------------------------------------------------
+
+
+class GenResult(NamedTuple):
+    latents: torch.Tensor       # [B, F, latent_dim]
+    frames_used: torch.Tensor   # [B] int32
+    eos_logits: torch.Tensor    # [B, F] f32
+    first_cond: torch.Tensor    # [B, d_model] parity tap
+    first_flow: torch.Tensor    # [B, latent_dim] parity tap
+    cache: Optional[KVCache] = None
+    x: Optional[torch.Tensor] = None
+    eos_step: Optional[torch.Tensor] = None
+    done: Optional[torch.Tensor] = None
+
+
+def eos_logit(w, normed: torch.Tensor) -> torch.Tensor:
+    return normed @ w.out_eos_w + w.out_eos_b
+
+
+def generate_latents_while(
+    w,
+    cache: KVCache,             # prefilled (prefill_init)
+    x0: torch.Tensor,           # [B, d_model] transformer output at BOS
+    noise: torch.Tensor,        # [B, max_frames, latent_dim]
+    cfg: FlowLMConfig,
+    max_frames: int,
+    num_steps: int,
+    eos_threshold: float = -4.0,
+    eos_min_frames: int = 1,
+    eos_after=0,                # int or [B]
+    max_frames_per_stream: Optional[torch.Tensor] = None,  # [B]
+) -> GenResult:
+    """Per-frame loop: out_norm -> EOS -> LSD -> input_linear -> KV decode
+    step, with per-stream EOS state, stopping once every stream is done.
+    Frames after that stay zero in the output buffers."""
+    B = x0.shape[0]
+    dev = x0.device
+    time_embs = lsd_time_embeds(w, num_steps, cfg)
+    eos_after = torch.as_tensor(eos_after, dtype=torch.int32, device=dev).expand(B)
+    eos_step = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    used = torch.zeros(B, dtype=torch.int32, device=dev)
+    latents = x0.new_zeros(B, max_frames, cfg.latent_dim)
+    eos_logits = torch.zeros(B, max_frames, dtype=torch.float32, device=dev)
+    first_cond = torch.zeros_like(x0)
+    first_flow = x0.new_zeros(B, cfg.latent_dim)
+    x = x0
+    for i in range(max_frames):
+        if bool(done.all()):
+            break
+        normed = layernorm(x, w.out_norm_w, w.out_norm_b, cfg.ln_eps)
+        eos = eos_logit(w, normed)
+        hit = (eos >= eos_threshold) & ((i + 1) >= eos_min_frames)
+        eos_step = torch.where((eos_step < 0) & hit, i, eos_step)
+
+        latent, flow0 = lsd_decode(w, normed, time_embs, noise[:, i], cfg)
+        if i == 0:
+            first_cond, first_flow = normed, flow0
+
+        newly_done = (eos_step >= 0) & (i >= eos_step + eos_after)
+        if max_frames_per_stream is not None:
+            newly_done = newly_done | (i + 1 >= max_frames_per_stream)
+        used = torch.where(done, used, i + 1)
+        done = done | newly_done
+        latents[:, i] = latent.to(latents.dtype)
+        eos_logits[:, i] = eos.float()
+
+        cache, x = decode_step(w, cache, _linear(w.input_linear, None, latent), cfg)
+
+    frames_used = torch.where(done, used, max_frames)
+    return GenResult(latents=latents, frames_used=frames_used, eos_logits=eos_logits,
+                     first_cond=first_cond, first_flow=first_flow, cache=cache, x=x,
+                     eos_step=eos_step, done=done)
+
+
+def scale_latents(w, latents: torch.Tensor) -> torch.Tensor:
+    """x * emb_std + emb_mean."""
+    return latents * w.emb_std + w.emb_mean

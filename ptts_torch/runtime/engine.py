@@ -1,0 +1,287 @@
+"""TTSEngine: device-resident weights + the offline text -> PCM pipeline
+(port of ptts_tpu/runtime/engine.py).
+
+Weights load from the safetensors mmap to the device once, at construction.
+Prompt assembly stays on the host in numpy; prefill, the per-frame loop and
+Mimi run on the engine's device. Shape bucketing (prefix length, frame
+count) is kept as in the JAX engine, so both packages compute on the same
+padded shapes and draw the same host noise (ptts_tpu.rng.frame_noise).
+
+Unlike the JAX engine there is no degradation from a failing kernel to its
+plain version: on a CUDA device the kernels run or the call raises, and an
+engine asked for ``cuda`` never runs on the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ptts_tpu import api
+from ptts_tpu.io.wav import Audio
+from ptts_tpu.rng import frame_noise
+from ptts_tpu.text import estimate_frames, prepare_text
+from ptts_tpu.utils.timing import span
+
+from .. import convert
+from ..models import flowlm, mimi
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclasses.dataclass
+class GenerateOutput:
+    """Single-stream result with the parity taps (--latent-out/--cond-out/
+    --flow-out of the reference CLI)."""
+
+    audio: Optional[Audio]
+    latents: np.ndarray          # [used, latent_dim] raw (pre-scale) latents
+    frames_used: int
+    first_eos_logit: float
+    first_cond: np.ndarray       # [d_model]
+    first_flow: np.ndarray       # [latent_dim]
+
+
+class TTSEngine:
+    def __init__(self, ctx, dtype: Optional[torch.dtype] = None,
+                 prefix_bucket: int = 64, frame_bucket: int = 64):
+        """``ctx`` is a ptts_torch.api.Context; the engine runs on
+        ``ctx.device``. dtype: float32 (default, the parity mode) or
+        bfloat16 (PTTS_DTYPE=bf16)."""
+        if dtype is None:
+            dtype = torch.bfloat16 if os.environ.get("PTTS_DTYPE") == "bf16" else torch.float32
+        self.device = torch.device(ctx.device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("engine asked for a CUDA device, but CUDA is not available")
+        if dtype == torch.float32:
+            # f32 parity: cuDNN would otherwise run the SEANet convs in TF32
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        self.ctx = ctx
+        self.flowlm_cfg = ctx.flowlm_cfg
+        self.mimi_cfg = ctx.mimi_cfg
+        self.dtype = dtype
+        self.prefix_bucket = prefix_bucket
+        self.frame_bucket = frame_bucket
+
+        fw_host = flowlm.load_weights(ctx.weights, self.flowlm_cfg)
+        mw_host = mimi.load_weights(ctx.weights, self.mimi_cfg)
+        # host copies for prefix assembly (off the device path), always f32
+        self._embed = np.asarray(fw_host["embed"], np.float32)
+        self._input_linear = np.asarray(fw_host["input_linear"], np.float32)
+        self._bos_emb = np.asarray(fw_host["bos_emb"], np.float32)
+        self.fw = convert.flowlm_weights(fw_host, self.flowlm_cfg, dtype, self.device)
+        self.mw = convert.mimi_weights(mw_host, self.mimi_cfg, dtype, self.device)
+        self._voice_cache: dict = {}
+
+    # -- prompt assembly -----------------------------------------------------
+
+    def _voice_cond(self, voice: Optional[str]) -> Tuple[Optional[np.ndarray], int]:
+        key = voice or "alba"
+        if key not in self._voice_cache:
+            self._voice_cache[key] = api.load_voice_conditioning(
+                self.ctx.model_dir, voice, self.flowlm_cfg.d_model)
+        return self._voice_cache[key]
+
+    def _build_prefix(self, token_ids: Sequence[int],
+                      cond: Optional[np.ndarray]) -> np.ndarray:
+        """[T0, d_model]: voice cond frames + token embeddings + projected BOS."""
+        cfg = self.flowlm_cfg
+        parts = []
+        if cond is not None and len(cond):
+            parts.append(cond.astype(np.float32))
+        ids = np.asarray(token_ids, dtype=np.int64)
+        ids = np.where((ids < 0) | (ids >= cfg.vocab + 1), 0, ids)
+        parts.append(self._embed[ids])
+        bos = self._bos_emb @ self._input_linear.T
+        parts.append(bos[None, :].astype(np.float32))
+        return np.concatenate(parts, axis=0)
+
+    # -- generation ------------------------------------------------------------
+
+    def _tensor(self, a, dtype=None) -> torch.Tensor:
+        return torch.from_numpy(np.array(a)).to(self.device, dtype or self.dtype)
+
+    @torch.inference_mode()
+    def generate_latents_batch(
+        self,
+        prefixes: List[np.ndarray],               # list of [T0_b, d_model]
+        max_frames: int,
+        params: api.Params,
+        noise: Optional[np.ndarray] = None,       # [B, frames, latent] override
+        eos_after: Optional[np.ndarray] = None,   # [B] per-stream override
+        frames_each: Optional[np.ndarray] = None,  # [B] per-stream budgets
+    ) -> flowlm.GenResult:
+        """Prefill + per-frame loop for B ragged streams. The loop stops at
+        each stream's true budget (``frames_each``, default max_frames) or
+        EOS, whichever comes first, not at the frame bucket."""
+        cfg = self.flowlm_cfg
+        B = len(prefixes)
+        lengths = np.array([len(p) for p in prefixes], np.int32)
+        T0 = _round_up(int(lengths.max()), self.prefix_bucket)
+        frames = _round_up(max_frames, self.frame_bucket)
+
+        padded = np.zeros((B, T0, cfg.d_model), np.float32)
+        for b, p in enumerate(prefixes):
+            padded[b, : len(p)] = p
+
+        if noise is None:
+            seed = params.seed if params.seed != -1 else int(time.time())
+            noise = np.stack([
+                frame_noise(seed + b, frames, cfg.latent_dim, temp=params.temp,
+                            noise_clamp=params.noise_clamp)
+                for b in range(B)
+            ])
+        elif noise.shape[1] < frames:
+            pad = np.zeros((B, frames - noise.shape[1], cfg.latent_dim), np.float32)
+            noise = np.concatenate([noise, pad], axis=1)
+        elif noise.shape[1] > frames:
+            noise = noise[:, :frames]
+
+        cache, x0 = flowlm.prefill_init(self.fw, self._tensor(padded),
+                                        self._tensor(lengths, torch.int32), cfg, T0 + frames)
+        budgets = np.broadcast_to(
+            np.asarray(frames_each if frames_each is not None else max_frames, np.int32), (B,))
+        res = flowlm.generate_latents_while(
+            self.fw, cache, x0, self._tensor(noise), cfg,
+            max_frames=frames, num_steps=params.num_steps,
+            # EOS disabled == a threshold that can never fire
+            eos_threshold=params.eos_threshold if params.eos_enabled else 1e30,
+            eos_min_frames=params.eos_min_frames,
+            eos_after=self._tensor(eos_after if eos_after is not None else params.eos_after,
+                                   torch.int32),
+            max_frames_per_stream=self._tensor(budgets, torch.int32),
+        )
+        # cap frames_used at the caller's true max (bucketing may exceed it)
+        capped = torch.clamp(res.frames_used, max=max_frames)
+        return res._replace(frames_used=capped, cache=None, x=None)
+
+    @torch.inference_mode()
+    def decode_audio_batch(self, scaled_latents: torch.Tensor) -> np.ndarray:
+        """[B, F, latent_dim] scaled latents -> PCM [B, F * frame_samples] (f32)."""
+        pcm = mimi.decode(self.mw, scaled_latents, self.mimi_cfg)
+        return pcm.float().cpu().numpy()
+
+    @torch.inference_mode()
+    def generate_full(self, text: str, voice: Optional[str] = None,
+                      params: Optional[api.Params] = None,
+                      decode_audio: bool = True) -> GenerateOutput:
+        p = (params or api.Params()).normalized()
+        prepared, word_count, eos_after_guess = prepare_text(text)
+        token_ids = self.ctx.tokenize(prepared)
+        if p.num_frames <= 0:
+            p = dataclasses.replace(p, num_frames=estimate_frames(word_count))
+        if p.eos_after <= 0:
+            p = dataclasses.replace(p, eos_after=eos_after_guess)
+        cond, _ = self._voice_cond(voice)
+        prefix = self._build_prefix(token_ids, cond)
+
+        with span("FlowLM latents", f"{p.num_frames} frames"):
+            res = self.generate_latents_batch([prefix], p.num_frames, p)
+            used = int(res.frames_used[0])
+        latents = res.latents[0, :used].float().cpu().numpy()
+
+        audio = None
+        if decode_audio:
+            # decode on a bucketed frame count, slice after
+            fbucket = min(res.latents.shape[1], _round_up(used, self.frame_bucket))
+            scaled = flowlm.scale_latents(self.fw, res.latents[:, :fbucket])
+            with span("Mimi decode", f"{used} frames"):
+                pcm = self.decode_audio_batch(scaled)
+            audio = Audio(sample_rate=p.sample_rate, channels=1,
+                          samples=pcm[0, : used * self.mimi_cfg.frame_samples])
+
+        return GenerateOutput(
+            audio=audio,
+            latents=latents,
+            frames_used=used,
+            first_eos_logit=float(res.eos_logits[0, 0]),
+            first_cond=res.first_cond[0].float().cpu().numpy(),
+            first_flow=res.first_flow[0].float().cpu().numpy(),
+        )
+
+    def generate(self, text: str, voice: Optional[str] = None,
+                 params: Optional[api.Params] = None) -> Audio:
+        out = self.generate_full(text, voice=voice, params=params)
+        assert out.audio is not None
+        return out.audio
+
+    @torch.inference_mode()
+    def warmup(self, batch_sizes: Sequence[int] = (1,),
+               num_frames: Optional[int] = None, decode_audio: bool = True) -> float:
+        """Run the pipeline once per batch size at the engine's shape buckets
+        (builds the kernels, fills the allocator's pools). Returns wall seconds."""
+        t0 = time.perf_counter()
+        frames = num_frames if num_frames else self.frame_bucket
+        p = api.Params(num_steps=1, seed=0).normalized()
+        prefix = np.zeros((self.prefix_bucket, self.flowlm_cfg.d_model), np.float32)
+        for B in batch_sizes:
+            res = self.generate_latents_batch([prefix] * B, frames, p)
+            if decode_audio:
+                self.decode_audio_batch(flowlm.scale_latents(self.fw, res.latents))
+        return time.perf_counter() - t0
+
+    @torch.inference_mode()
+    def batch_generate(self, texts: Sequence[str],
+                       voices: Optional[Sequence[Optional[str]]] = None,
+                       params: Optional[api.Params] = None,
+                       length_buckets: int = 1) -> List[Audio]:
+        """B independent utterances, run in lockstep in one batch (or, with
+        ``length_buckets > 1``, in groups sorted by frame budget, each group
+        stopping at its own longest stream). Stream i's noise is keyed by its
+        index (seed + i), so grouping never changes a stream's output."""
+        p = (params or api.Params()).normalized()
+        if voices is None:
+            voices = [None] * len(texts)
+
+        prefixes, frames, eos_afters = [], [], []
+        for text, voice in zip(texts, voices):
+            prepared, wc, eos_after_guess = prepare_text(text)
+            ids = self.ctx.tokenize(prepared)
+            cond, _ = self._voice_cond(voice)
+            prefixes.append(self._build_prefix(ids, cond))
+            frames.append(p.num_frames if p.num_frames > 0 else estimate_frames(wc))
+            eos_afters.append(p.eos_after if p.eos_after > 0 else eos_after_guess)
+
+        B = len(texts)
+        frames_np = np.asarray(frames, np.int32)
+        eos_np = np.asarray(eos_afters, np.int32)
+        G = max(1, min(length_buckets, B // 2)) if B >= 4 else 1
+        if int(frames_np.max()) - int(frames_np.min()) < 16:
+            G = 1  # near-uniform budgets: splitting only shrinks the GEMMs
+        order = np.argsort(frames_np, kind="stable") if G > 1 else np.arange(B)
+        gB = -(-B // G)
+        seed = p.seed if p.seed != -1 else int(time.time())
+
+        out: List[Optional[Audio]] = [None] * B
+        for g in range(G):
+            idx = order[g * gB : (g + 1) * gB]
+            if idx.size == 0:
+                continue
+            pad = gB - idx.size if G > 1 else 0
+            gidx = np.concatenate([idx, np.repeat(idx[-1:], pad)]) if pad else idx
+            gmax = int(frames_np[gidx].max())
+            noise = np.stack([
+                frame_noise(seed + int(i), gmax, self.flowlm_cfg.latent_dim,
+                            temp=p.temp, noise_clamp=p.noise_clamp)
+                for i in gidx
+            ])
+            res = self.generate_latents_batch(
+                [prefixes[i] for i in gidx], gmax, p, noise=noise,
+                eos_after=eos_np[gidx], frames_each=frames_np[gidx])
+            used = np.minimum(res.frames_used.cpu().numpy(), frames_np[gidx])
+            # vocoder at the group's own width, in 16-frame steps
+            fmax = min(res.latents.shape[1], _round_up(max(int(used.max()), 1), 16))
+            pcm = self.decode_audio_batch(flowlm.scale_latents(self.fw, res.latents[:, :fmax]))
+            for j, i in enumerate(idx):
+                n = int(used[j]) * self.mimi_cfg.frame_samples
+                out[i] = Audio(sample_rate=p.sample_rate, channels=1, samples=pcm[j, :n])
+        assert all(a is not None for a in out)
+        return out  # type: ignore[return-value]

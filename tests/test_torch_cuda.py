@@ -1,0 +1,107 @@
+"""The hand-written CUDA kernels of ptts_torch on the card.
+
+Every test here needs a CUDA device and skips without one. The machine with
+the card has no jax, and tests/conftest.py imports it, so run this file
+there without the conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Gates (max error relative to the largest reference value): 1e-4 in f32,
+5e-2 in bf16 for a kernel against its plain version on the same inputs;
+1e-3 for the engine on the card against the engine on the CPU.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from ptts_torch import api, synth  # noqa: E402
+from ptts_torch.ops.cuda import fused_attention as fa  # noqa: E402
+from ptts_tpu.config import FlowLMConfig, MimiConfig  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+GATES = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def rel(got, want):
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def qkv_on(dev, dtype, B, T, H, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, T, 3 * H * 64)).astype(np.float32)
+    return torch.from_numpy(x).to(dev, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,lengths", [(64, [64, 1, 33, 7]), (128, [128, 65, 64, 100]),
+                                       (100, [100, 99, 1, 64])])
+def test_causal_kernel_matches_plain(dev, dtype, T, lengths):
+    H = 16
+    qkv = qkv_on(dev, dtype, len(lengths), T, H, seed=T)
+    # poison the K/V rows past each length: the kernel must not read them
+    for b, n in enumerate(lengths):
+        qkv[b, n:, H * 64:] = 1e20
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    before = fa.causal_attention_qkv.launches
+    got, k_rot = fa.causal_attention_qkv(qkv, lens, num_heads=H, head_dim=64)
+    want, want_k = fa.causal_attention_qkv_plain(qkv, lens, num_heads=H, head_dim=64)
+    assert fa.causal_attention_qkv.launches == before + 1
+    for b, n in enumerate(lengths):
+        assert torch.isfinite(got[b, :n]).all()
+        assert rel(got[b, :n], want[b, :n]) <= GATES[dtype]
+    assert rel(k_rot, want_k) <= GATES[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,context", [(2, 1024, 250), (2, 800, 250), (1, 37, 250),
+                                         (3, 300, 5), (1, 256, 64)])
+def test_window_kernel_matches_plain(dev, dtype, B, T, context):
+    qkv = qkv_on(dev, dtype, B, T, 8, seed=T + context)
+    got = fa.window_attention_qkv(qkv, num_heads=8, head_dim=64, context=context)
+    want = fa.window_attention_qkv_plain(qkv, num_heads=8, head_dim=64, context=context)
+    assert torch.isfinite(got).all()
+    assert rel(got, want) <= GATES[dtype]
+
+
+def test_kernels_refuse_what_they_cannot_take(dev):
+    qkv = qkv_on(dev, torch.float32, 2, 64, 2, seed=0)
+    lens = torch.tensor([64, 3], dtype=torch.int32)
+    with pytest.raises(ValueError):  # lengths on the host
+        fa.causal_attention_qkv(qkv, lens, num_heads=2, head_dim=64)
+    with pytest.raises(ValueError):  # not contiguous
+        fa.window_attention_qkv(qkv.transpose(0, 1), num_heads=2, head_dim=64, context=5)
+    with pytest.raises(ValueError):  # head dim the kernels are not built for
+        fa.window_attention_qkv(qkv, num_heads=4, head_dim=32, context=5)
+    with pytest.raises(TypeError):
+        fa.window_attention_qkv(qkv.half(), num_heads=2, head_dim=64, context=5)
+
+
+def test_engine_on_card_matches_cpu(dev, tmp_path):
+    """A small model with the kernels' head dim: the f32 engine on the card
+    (kernels) against the same engine on the CPU (plain versions)."""
+    fc = FlowLMConfig(vocab=60, text_dim=128, d_model=128, num_heads=2, head_dim=64,
+                      num_layers=2, hidden=256, latent_dim=8, flow_dim=32, flow_depth=2,
+                      time_freqs=8)
+    mc = MimiConfig(latent_dim=8, d_model=128, num_heads=2, head_dim=64, num_layers=1,
+                    hidden=256, n_filters=4, ratios=(3, 2))
+    path = synth.write_model_dir(str(tmp_path), fc, mc, seed=2, scale=0.1)
+    p = api.Params(seed=4, num_frames=5, eos_enabled=False, num_steps=2)
+    outs = []
+    for device in ("cpu", "cuda"):
+        ctx = api.load_dir(path, flowlm_cfg=fc, mimi_cfg=mc, device=device)
+        outs.append(ctx.engine.generate_full("Hello world!", params=p))
+    cpu, gpu = outs
+    assert cpu.frames_used == gpu.frames_used == 5
+    assert rel(torch.from_numpy(gpu.latents), torch.from_numpy(cpu.latents)) <= 1e-3
+    assert rel(torch.from_numpy(gpu.audio.samples), torch.from_numpy(cpu.audio.samples)) <= 1e-3
