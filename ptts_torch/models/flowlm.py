@@ -3,8 +3,10 @@
 Every function mirrors its JAX namesake and takes the weights first: ``w``
 is the module from ptts_torch.convert.flowlm_weights, whose buffers carry
 the JAX host dict's names (``w.in_proj`` is ``w["in_proj"]`` there). The
-per-frame loop is a Python loop over frames that stops once every stream is
-done; the prompt prefill runs the fused RoPE + causal attention kernel
+frame loops are Python loops over frame_step: generate_latents_while stops
+once every stream is done, generate_latents runs a fixed, resumable number
+of frames with no host sync, and runtime/streaming runs one frame per call.
+The prompt prefill runs the fused RoPE + causal attention kernel
 (ops/cuda/fused_attention.causal_attention_qkv); the per-frame decode
 attention is the plain masked einsum, as the JAX package leaves it to XLA.
 """
@@ -179,6 +181,17 @@ class KVCache:
         return (t < self.prefix_len[:, None]) | dec_valid
 
 
+def make_cache(cfg: FlowLMConfig, batch: int, max_len: int,
+               dtype: torch.dtype = torch.float32, device="cpu") -> KVCache:
+    """An empty [L, batch, max_len, H, D] cache for ``prefill`` to fill."""
+    shape = (cfg.num_layers, batch, max_len, cfg.num_heads, cfg.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   prefix_len=torch.zeros(batch, dtype=torch.int32, device=device),
+                   start=torch.zeros(batch, dtype=torch.int32, device=device),
+                   cursor=0, t0=0)
+
+
 def prefill_kv(w, x: torch.Tensor, lengths: torch.Tensor, cfg: FlowLMConfig
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched causal prompt pass over x [B, T, d] with [B] int32 valid
@@ -204,17 +217,21 @@ def prefill_init(w, x: torch.Tensor, lengths: torch.Tensor, cfg: FlowLMConfig,
                  max_len: int) -> Tuple[KVCache, torch.Tensor]:
     """Prompt pass that builds a [L, B, max_len, H, D] cache holding the
     prompt's K/V in its first T columns."""
-    B, T, _ = x.shape
+    return prefill(w, make_cache(cfg, x.shape[0], max_len, x.dtype, x.device), x, lengths, cfg)
+
+
+def prefill(w, cache: KVCache, x: torch.Tensor, lengths: torch.Tensor,
+            cfg: FlowLMConfig) -> Tuple[KVCache, torch.Tensor]:
+    """Prompt pass into an existing cache: the prompt's K/V go to its first
+    T columns in place, and start = t0 = cursor = T. Returns the cache and
+    the transformer output at each stream's last valid position [B, d]."""
+    T = x.shape[1]
     k_new, v_new, last = prefill_kv(w, x, lengths, cfg)
-    shape = (cfg.num_layers, B, max_len, cfg.num_heads, cfg.head_dim)
-    k = x.new_zeros(shape)
-    v = x.new_zeros(shape)
-    k[:, :, :T] = k_new
-    v[:, :, :T] = v_new
-    cache = KVCache(k=k, v=v, prefix_len=lengths.to(torch.int32),
-                    start=torch.full((B,), T, dtype=torch.int32, device=x.device),
-                    cursor=T, t0=T)
-    return cache, last
+    cache.k[:, :, :T] = k_new.to(cache.k.dtype)
+    cache.v[:, :, :T] = v_new.to(cache.v.dtype)
+    cache.prefix_len.copy_(lengths)
+    cache.start.fill_(T)
+    return dataclasses.replace(cache, cursor=T, t0=T), last
 
 
 def decode_step(w, cache: KVCache, x: torch.Tensor, cfg: FlowLMConfig
@@ -306,6 +323,26 @@ def lsd_decode(w, cond: torch.Tensor, time_embs: torch.Tensor, x: torch.Tensor,
     return x, first
 
 
+def lsd_decode_ragged(w, cond: torch.Tensor, time_embs: torch.Tensor,
+                      num_steps: torch.Tensor, x: torch.Tensor, cfg: FlowLMConfig
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Euler sampler with per-stream step counts: time_embs [B, S_max, fd]
+    (stream b's own lsd_time_embeds padded to S_max), num_steps [B] int32.
+    Every stream pays S_max flow_net calls; steps >= n_b are masked no-ops.
+    Returns (latent, first_flow)."""
+    fw = w.flow
+    cond_emb = _linear(fw.cond_w, fw.cond_b, cond)
+    n_b = torch.clamp(num_steps, min=1).float()[:, None]
+    first = None
+    for i in range(time_embs.shape[1]):
+        flow = flow_net(w, cond_emb, time_embs[:, i], x, cfg)
+        if first is None:
+            first = flow
+        active = (i < num_steps)[:, None]
+        x = x + torch.where(active, flow / n_b.to(flow.dtype), 0.0)
+    return x, first
+
+
 # ---------------------------------------------------------------------------
 # Generation
 # ---------------------------------------------------------------------------
@@ -327,6 +364,104 @@ def eos_logit(w, normed: torch.Tensor) -> torch.Tensor:
     return normed @ w.out_eos_w + w.out_eos_b
 
 
+def frame_step(w, cache: KVCache, x: torch.Tensor, noise: torch.Tensor,
+               time_embs: torch.Tensor, i, eos_step: torch.Tensor, done: torch.Tensor,
+               cfg: FlowLMConfig, *, eos_enabled: bool = True, eos_threshold=-4.0,
+               eos_min_frames=1, eos_after=0, max_frames: Optional[torch.Tensor] = None,
+               num_steps: Optional[torch.Tensor] = None):
+    """One generation frame for B streams: out_norm -> EOS -> LSD ->
+    input_linear -> KV decode step.
+
+    ``i`` is the frame index (host int or [B]); the EOS threshold and
+    min-frames are scalars or [B]; frame i is emitted, then a stream is done
+    once i >= eos_step + eos_after or i + 1 >= max_frames[b]. A [B, S_max, fd]
+    ``time_embs`` takes per-stream step counts ``num_steps`` [B]
+    (lsd_decode_ragged). Returns (cache, x, latent, eos, eos_step, done,
+    normed, first_flow)."""
+    normed = layernorm(x, w.out_norm_w, w.out_norm_b, cfg.ln_eps)
+    eos = eos_logit(w, normed)
+    if eos_enabled:
+        hit = (eos >= eos_threshold) & ((i + 1) >= eos_min_frames)
+        eos_step = torch.where((eos_step < 0) & hit, i, eos_step)
+    if time_embs.dim() == 3:
+        latent, flow0 = lsd_decode_ragged(w, normed, time_embs, num_steps, noise, cfg)
+    else:
+        latent, flow0 = lsd_decode(w, normed, time_embs, noise, cfg)
+    done = done | ((eos_step >= 0) & (i >= eos_step + eos_after))
+    if max_frames is not None:
+        done = done | (i + 1 >= max_frames)
+    cache, x = decode_step(w, cache, _linear(w.input_linear, None, latent), cfg)
+    return cache, x, latent, eos, eos_step, done, normed, flow0
+
+
+def _frame_loop(w, cache: KVCache, x: torch.Tensor, noise: torch.Tensor, cfg: FlowLMConfig,
+                max_frames: int, num_steps: int, *, stop_when_done: bool, eos_enabled: bool,
+                eos_threshold, eos_min_frames, eos_after, max_frames_per_stream=None,
+                frame0: int = 0, eos_step0=None, done0=None, used0=None) -> GenResult:
+    """Frames frame0 .. frame0 + max_frames - 1 through frame_step, with the
+    per-stream EOS state and the parity taps of frame 0."""
+    B = x.shape[0]
+    dev = x.device
+    time_embs = lsd_time_embeds(w, num_steps, cfg)
+    eos_after = torch.as_tensor(eos_after, dtype=torch.int32, device=dev).expand(B)
+    eos_step = (torch.full((B,), -1, dtype=torch.int32, device=dev)
+                if eos_step0 is None else eos_step0)
+    done = torch.zeros(B, dtype=torch.bool, device=dev) if done0 is None else done0
+    used = torch.zeros(B, dtype=torch.int32, device=dev) if used0 is None else used0
+    latents = x.new_zeros(B, max_frames, cfg.latent_dim)
+    eos_logits = torch.zeros(B, max_frames, dtype=torch.float32, device=dev)
+    first_cond = torch.zeros_like(x)
+    first_flow = x.new_zeros(B, cfg.latent_dim)
+    for j in range(max_frames):
+        if stop_when_done and bool(done.all()):
+            break
+        i = frame0 + j
+        was_done = done
+        cache, x, latent, eos, eos_step, done, normed, flow0 = frame_step(
+            w, cache, x, noise[:, j], time_embs, i, eos_step, done, cfg,
+            eos_enabled=eos_enabled, eos_threshold=eos_threshold,
+            eos_min_frames=eos_min_frames, eos_after=eos_after,
+            max_frames=max_frames_per_stream)
+        if i == 0:
+            first_cond, first_flow = normed, flow0
+        used = torch.where(was_done, used, i + 1)
+        latents[:, j] = latent.to(latents.dtype)
+        eos_logits[:, j] = eos.float()
+
+    frames_used = torch.where(done, used, frame0 + max_frames)
+    return GenResult(latents=latents, frames_used=frames_used, eos_logits=eos_logits,
+                     first_cond=first_cond, first_flow=first_flow, cache=cache, x=x,
+                     eos_step=eos_step, done=done)
+
+
+def generate_latents(
+    w,
+    cache: KVCache,             # prefilled (prefill / prefill_init)
+    x0: torch.Tensor,           # [B, d_model] transformer output at BOS
+    noise: torch.Tensor,        # [B, max_frames, latent_dim]
+    cfg: FlowLMConfig,
+    max_frames: int,
+    num_steps: int,
+    eos_enabled: bool = True,
+    eos_threshold: float = -4.0,
+    eos_min_frames: int = 1,
+    eos_after=0,                # int or [B]
+    frame0: int = 0,
+    eos_step0: Optional[torch.Tensor] = None,
+    done0: Optional[torch.Tensor] = None,
+    used0: Optional[torch.Tensor] = None,
+) -> GenResult:
+    """Fixed-length frame loop: all max_frames frames run, with no host sync.
+    Resumable: pass the returned cache and x as the next call's cache and
+    x0, with frame0 advanced and the returned eos_step/done/frames_used as
+    eos_step0/done0/used0; two calls then equal one call of both lengths."""
+    return _frame_loop(w, cache, x0, noise, cfg, max_frames, num_steps,
+                       stop_when_done=False, eos_enabled=eos_enabled,
+                       eos_threshold=eos_threshold, eos_min_frames=eos_min_frames,
+                       eos_after=eos_after, frame0=frame0, eos_step0=eos_step0,
+                       done0=done0, used0=used0)
+
+
 def generate_latents_while(
     w,
     cache: KVCache,             # prefilled (prefill_init)
@@ -340,49 +475,33 @@ def generate_latents_while(
     eos_after=0,                # int or [B]
     max_frames_per_stream: Optional[torch.Tensor] = None,  # [B]
 ) -> GenResult:
-    """Per-frame loop: out_norm -> EOS -> LSD -> input_linear -> KV decode
-    step, with per-stream EOS state, stopping once every stream is done.
-    Frames after that stay zero in the output buffers."""
-    B = x0.shape[0]
-    dev = x0.device
-    time_embs = lsd_time_embeds(w, num_steps, cfg)
-    eos_after = torch.as_tensor(eos_after, dtype=torch.int32, device=dev).expand(B)
-    eos_step = torch.full((B,), -1, dtype=torch.int32, device=dev)
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    used = torch.zeros(B, dtype=torch.int32, device=dev)
-    latents = x0.new_zeros(B, max_frames, cfg.latent_dim)
-    eos_logits = torch.zeros(B, max_frames, dtype=torch.float32, device=dev)
-    first_cond = torch.zeros_like(x0)
-    first_flow = x0.new_zeros(B, cfg.latent_dim)
-    x = x0
-    for i in range(max_frames):
-        if bool(done.all()):
-            break
-        normed = layernorm(x, w.out_norm_w, w.out_norm_b, cfg.ln_eps)
-        eos = eos_logit(w, normed)
-        hit = (eos >= eos_threshold) & ((i + 1) >= eos_min_frames)
-        eos_step = torch.where((eos_step < 0) & hit, i, eos_step)
-
-        latent, flow0 = lsd_decode(w, normed, time_embs, noise[:, i], cfg)
-        if i == 0:
-            first_cond, first_flow = normed, flow0
-
-        newly_done = (eos_step >= 0) & (i >= eos_step + eos_after)
-        if max_frames_per_stream is not None:
-            newly_done = newly_done | (i + 1 >= max_frames_per_stream)
-        used = torch.where(done, used, i + 1)
-        done = done | newly_done
-        latents[:, i] = latent.to(latents.dtype)
-        eos_logits[:, i] = eos.float()
-
-        cache, x = decode_step(w, cache, _linear(w.input_linear, None, latent), cfg)
-
-    frames_used = torch.where(done, used, max_frames)
-    return GenResult(latents=latents, frames_used=frames_used, eos_logits=eos_logits,
-                     first_cond=first_cond, first_flow=first_flow, cache=cache, x=x,
-                     eos_step=eos_step, done=done)
+    """The frame loop with per-stream EOS state, stopping once every stream
+    is done (one host sync per frame). Frames after that stay zero in the
+    output buffers."""
+    return _frame_loop(w, cache, x0, noise, cfg, max_frames, num_steps,
+                       stop_when_done=True, eos_enabled=True,
+                       eos_threshold=eos_threshold, eos_min_frames=eos_min_frames,
+                       eos_after=eos_after, max_frames_per_stream=max_frames_per_stream)
 
 
 def scale_latents(w, latents: torch.Tensor) -> torch.Tensor:
     """x * emb_std + emb_mean."""
     return latents * w.emb_std + w.emb_mean
+
+
+def forward_next(w, seq: torch.Tensor, lengths: torch.Tensor, noise: torch.Tensor,
+                 cfg: FlowLMConfig, num_steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Uncached O(T^2) forward over the whole sequence seq [B, T, d] (BOS and
+    previous latents included): the next latent [B, latent] and EOS logit
+    [B]. The cross-check of the KV-cached loop; tests use it."""
+    _, _, last = prefill_kv(w, seq, lengths, cfg)
+    normed = layernorm(last, w.out_norm_w, w.out_norm_b, cfg.ln_eps)
+    eos = eos_logit(w, normed)
+    latent, _ = lsd_decode(w, normed, lsd_time_embeds(w, num_steps, cfg), noise, cfg)
+    return latent, eos
+
+
+def embed_tokens(w, token_ids: torch.Tensor, cfg: FlowLMConfig) -> torch.Tensor:
+    """Token ids -> embeddings; out-of-range ids clamp to row 0."""
+    ids = torch.where((token_ids < 0) | (token_ids >= cfg.vocab + 1), 0, token_ids)
+    return w.embed[ids.long()]

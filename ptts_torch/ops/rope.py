@@ -10,6 +10,8 @@ kernels in ops/cuda assume the same layout.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -22,10 +24,17 @@ def rope_freqs(head_dim: int, max_period: float = 10000.0) -> np.ndarray:
                   * (2.0 * i / np.float32(head_dim))).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=16)
+def _device_freqs(head_dim: int, max_period: float, device: torch.device) -> torch.Tensor:
+    """rope_freqs on the device, uploaded once: an upload per call would be a
+    host sync in every decode step."""
+    return torch.from_numpy(rope_freqs(head_dim, max_period)).to(device)
+
+
 def rope_cos_sin(positions: torch.Tensor, head_dim: int,
                  max_period: float = 10000.0):
     """cos/sin for integer positions; shapes [..., head_dim // 2], f32."""
-    freqs = torch.from_numpy(rope_freqs(head_dim, max_period)).to(positions.device)
+    freqs = _device_freqs(head_dim, float(max_period), positions.device)
     angle = positions.float()[..., None] * freqs
     return torch.cos(angle), torch.sin(angle)
 

@@ -8,7 +8,8 @@ there without the conftest:
 
 Gates (max error relative to the largest reference value): 1e-4 in f32,
 5e-2 in bf16 for a kernel against its plain version on the same inputs;
-1e-3 for the engine on the card against the engine on the CPU.
+1e-3 for the engine and the streaming session on the card against the same
+on the CPU.
 """
 
 import numpy as np
@@ -18,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 from ptts_torch import api, synth  # noqa: E402
 from ptts_torch.ops.cuda import fused_attention as fa  # noqa: E402
+from ptts_torch.runtime.streaming import StreamingSession, fused_stream_step  # noqa: E402
 from ptts_tpu.config import FlowLMConfig, MimiConfig  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -45,7 +47,7 @@ def qkv_on(dev, dtype, B, T, H, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T,lengths", [(64, [64, 1, 33, 7]), (128, [128, 65, 64, 100]),
-                                       (100, [100, 99, 1, 64])])
+                                       (100, [100, 99, 1, 64]), (37, [37, 20, 1, 36])])
 def test_causal_kernel_matches_plain(dev, dtype, T, lengths):
     H = 16
     qkv = qkv_on(dev, dtype, len(lengths), T, H, seed=T)
@@ -105,3 +107,37 @@ def test_engine_on_card_matches_cpu(dev, tmp_path):
     assert cpu.frames_used == gpu.frames_used == 5
     assert rel(torch.from_numpy(gpu.latents), torch.from_numpy(cpu.latents)) <= 1e-3
     assert rel(torch.from_numpy(gpu.audio.samples), torch.from_numpy(cpu.audio.samples)) <= 1e-3
+
+
+def stream_f32(path, device, p, texts, frames):
+    """Unclipped f32 PCM [B, frames * 1920] of a StreamingSession's state
+    driven through fused_stream_step with emit_i16=False (the session's
+    own int16 chunks clip, which would hide the drift this gate bounds)."""
+    ctx = api.load_dir(path, device=device)
+    engine = ctx.engine
+    s = StreamingSession.start(engine, texts, params=p, pipeline=False)
+    cache, state, x, eos_step, done, out = s.cache, s.mimi_state, s.x, s.eos_step, s.done, []
+    with torch.inference_mode():
+        for i in range(frames):
+            cache, state, x, pcm, _, eos_step, done = fused_stream_step(
+                engine.fw, engine.mw, cache, state, x, s._noise_dev, s.time_embs, i, eos_step,
+                done, s.cfg, engine.mimi_cfg, False, p.eos_threshold, p.eos_min_frames,
+                s.eos_after, s.frames_each)
+            out.append(pcm.float().cpu())
+    return torch.cat(out, dim=1)
+
+
+def test_full_width_stream_on_card_matches_cpu(dev, tmp_path):
+    """The default-width streaming step (prefill with B1 at the unrounded
+    prefix lengths, FlowLM frame, streaming Mimi) on the card against the
+    CPU: 8 frames of two ragged streams, f32 PCM within 1e-3 of max."""
+    path = synth.write_model_dir(str(tmp_path), seed=0)
+    p = api.Params(seed=1, num_frames=8, eos_enabled=False)
+    texts = ["Hello world!", "A second, longer stream of text."]
+    before = fa.causal_attention_qkv.launches
+    gpu = stream_f32(path, "cuda", p, texts, 8)
+    assert fa.causal_attention_qkv.launches == before + 6  # one per layer
+    cpu = stream_f32(path, "cpu", p, texts, 8)
+    assert gpu.shape == cpu.shape == (2, 8 * 1920)
+    assert torch.isfinite(gpu).all()
+    assert rel(gpu, cpu) <= 1e-3

@@ -164,3 +164,136 @@ def test_convert_applies_rope_permutation_once(flow_weights):
     assert host["in_proj"].shape == tw.in_proj.shape  # the host dict is not modified
     bf = convert.flowlm_weights(host, FC, dtype=torch.bfloat16)
     assert bf.flow.res.ada_w.dtype == torch.bfloat16 and bf.flow.time.freqs is not None
+
+
+def test_make_cache_and_prefill_match_prefill_init(flow_weights):
+    """Prefill into an empty cache == prefill_init, in both packages."""
+    _, jw, tw = flow_weights
+    rng = np.random.default_rng(15)
+    B, T, Tmax = 2, 7, 11
+    x = (rng.standard_normal((B, T, FC.d_model)) * 0.5).astype(np.float32)
+    lens = np.array([7, 4], np.int32)
+    jc, jlast = jfl.prefill(jw, jfl.make_cache(FC, B, Tmax), jnp.asarray(x), jnp.asarray(lens), FC)
+    tc, tlast = tfl.prefill(tw, tfl.make_cache(FC, B, Tmax), torch.from_numpy(x),
+                            torch.from_numpy(lens), FC)
+    ic, ilast = tfl.prefill_init(tw, torch.from_numpy(x), torch.from_numpy(lens), FC, Tmax)
+    close(tlast, jlast)
+    close(tc.k, jc.k)
+    close(tc.v, jc.v)
+    np.testing.assert_array_equal(tc.k.numpy(), ic.k.numpy())
+    np.testing.assert_array_equal(tlast.numpy(), ilast.numpy())
+    for name in ("prefix_len", "start"):
+        np.testing.assert_array_equal(getattr(tc, name).numpy(), np.asarray(getattr(jc, name)))
+    assert (tc.cursor, tc.t0) == (int(jc.cursor), int(jc.t0)) == (T, T)
+
+
+def test_lsd_decode_ragged_matches_jax_and_lsd_decode(flow_weights):
+    """Per-stream step counts from a [B, S_max, fd] table: against JAX, and
+    each stream against lsd_decode at its own step count (1e-6)."""
+    _, jw, tw = flow_weights
+    rng = np.random.default_rng(16)
+    B, S = 3, 4
+    steps = np.array([1, 4, 3], np.int32)
+    cond = rng.standard_normal((B, FC.d_model)).astype(np.float32)
+    noise = rng.standard_normal((B, FC.latent_dim)).astype(np.float32)
+    tabs = np.zeros((B, S, FC.flow_dim), np.float32)
+    for b, n in enumerate(steps):
+        tabs[b, :n] = tfl.lsd_time_embeds(tw, int(n), FC).numpy()
+    got = tfl.lsd_decode_ragged(tw, torch.from_numpy(cond), torch.from_numpy(tabs),
+                                torch.from_numpy(steps), torch.from_numpy(noise), FC)
+    want = jfl.lsd_decode_ragged(jw, jnp.asarray(cond), jnp.asarray(tabs), jnp.asarray(steps),
+                                 jnp.asarray(noise), FC)
+    for g, w in zip(got, want):
+        close(g, w)
+    for b, n in enumerate(steps):
+        one, first = tfl.lsd_decode(tw, torch.from_numpy(cond[b : b + 1]),
+                                    torch.from_numpy(tabs[b, :n]), torch.from_numpy(noise[b : b + 1]),
+                                    FC)
+        close(got[0][b : b + 1], one, 1e-6)
+        close(got[1][b : b + 1], first, 1e-6)
+
+
+def _prefilled(tw, jw, rng, B, T, F):
+    x = (rng.standard_normal((B, T, FC.d_model)) * 0.5).astype(np.float32)
+    lens = np.array([T, 2, 4][:B], np.int32)
+    jc, jx0 = jfl.prefill_init(jw, jnp.asarray(x), jnp.asarray(lens), FC, T + F)
+    tc, tx0 = tfl.prefill_init(tw, torch.from_numpy(x), torch.from_numpy(lens), FC, T + F)
+    return (jc, jx0), (tc, tx0)
+
+
+def test_generate_latents_matches_jax(flow_weights):
+    """The fixed-length loop: every frame runs; EOS state and taps as JAX."""
+    _, jw, tw = flow_weights
+    rng = np.random.default_rng(17)
+    B, T, F = 3, 6, 5
+    (jc, jx0), (tc, tx0) = _prefilled(tw, jw, rng, B, T, F)
+    noise = rng.standard_normal((B, F, FC.latent_dim)).astype(np.float32)
+    eos_after = np.array([0, 1, 2], np.int32)
+    kw = dict(max_frames=F, num_steps=2, eos_threshold=-0.5, eos_min_frames=2)
+    want = jfl.generate_latents(jw, jc, jx0, jnp.asarray(noise), FC, eos_after=eos_after, **kw)
+    got = tfl.generate_latents(tw, tc, tx0, torch.from_numpy(noise), FC, eos_after=eos_after, **kw)
+    for name in ("frames_used", "eos_step", "done"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name)))
+    for name in ("latents", "eos_logits", "first_cond", "first_flow", "x"):
+        close(getattr(got, name), getattr(want, name))
+    assert got.cache.cursor == T + F
+    assert (got.latents[:, -1] != 0).all()  # no early exit: the last frame ran
+
+
+def test_generate_latents_resumes(flow_weights):
+    """Two resumed calls (3 + 4 frames) equal one 7-frame call."""
+    _, jw, tw = flow_weights
+    rng = np.random.default_rng(18)
+    B, T, F = 2, 5, 7
+    _, (tc, tx0) = _prefilled(tw, jw, rng, B, T, F)
+    _, (tc2, _) = _prefilled(tw, jw, np.random.default_rng(18), B, T, F)
+    noise = rng.standard_normal((B, F, FC.latent_dim)).astype(np.float32)
+    kw = dict(num_steps=1, eos_enabled=True, eos_threshold=-0.3, eos_min_frames=1,
+              eos_after=np.array([1, 2], np.int32))
+    one = tfl.generate_latents(tw, tc, tx0, torch.from_numpy(noise), FC, max_frames=F, **kw)
+    a = tfl.generate_latents(tw, tc2, tx0, torch.from_numpy(noise[:, :3]), FC, max_frames=3, **kw)
+    b = tfl.generate_latents(tw, a.cache, a.x, torch.from_numpy(noise[:, 3:]), FC, max_frames=4,
+                             frame0=3, eos_step0=a.eos_step, done0=a.done, used0=a.frames_used,
+                             **kw)
+    close(torch.cat([a.latents, b.latents], 1), one.latents, 1e-6)
+    close(torch.cat([a.eos_logits, b.eos_logits], 1), one.eos_logits, 1e-6)
+    for name in ("frames_used", "eos_step", "done"):
+        np.testing.assert_array_equal(getattr(b, name).numpy(), getattr(one, name).numpy())
+    close(a.first_cond, one.first_cond, 0)
+    assert (b.first_cond == 0).all()  # the taps belong to frame 0
+    assert b.cache.cursor == one.cache.cursor
+
+
+def test_forward_next_matches_cached_loop_and_jax(flow_weights):
+    """The uncached O(T^2) forward over [prompt, input_linear(latents)]
+    reproduces each frame of the KV-cached loop."""
+    _, jw, tw = flow_weights
+    rng = np.random.default_rng(19)
+    B, T, F = 2, 5, 3
+    x = (rng.standard_normal((B, T, FC.d_model)) * 0.5).astype(np.float32)
+    lens = np.full(B, T, np.int32)  # unpadded: the sequence grows by appending
+    noise = rng.standard_normal((B, F, FC.latent_dim)).astype(np.float32)
+    tc, tx0 = tfl.prefill_init(tw, torch.from_numpy(x), torch.from_numpy(lens), FC, T + F)
+    res = tfl.generate_latents(tw, tc, tx0, torch.from_numpy(noise), FC, max_frames=F,
+                               num_steps=2, eos_enabled=False)
+    seq = torch.from_numpy(x)
+    for i in range(F):
+        n = torch.full((B,), T + i, dtype=torch.int32)
+        latent, eos = tfl.forward_next(tw, seq, n, torch.from_numpy(noise[:, i]), FC, 2)
+        jlat, jeos = jfl.forward_next(jw, jnp.asarray(seq.numpy()), jnp.asarray(n.numpy()),
+                                      jnp.asarray(noise[:, i]), FC, 2)
+        close(latent, jlat)
+        close(eos, jeos)
+        close(latent, res.latents[:, i])
+        close(eos, res.eos_logits[:, i])
+        nxt = tfl._linear(tw.input_linear, None, res.latents[:, i])
+        seq = torch.cat([seq, nxt[:, None]], 1)
+
+
+def test_embed_tokens_clamps_like_jax(flow_weights):
+    _, jw, tw = flow_weights
+    ids = np.array([[0, 3, FC.vocab, FC.vocab + 1, -1, 99]], np.int64)
+    got = tfl.embed_tokens(tw, torch.from_numpy(ids), FC)
+    want = jfl.embed_tokens(jw, jnp.asarray(ids.astype(np.int32)), FC)
+    close(got, want, 0)
+    np.testing.assert_array_equal(got[0, 3:].numpy(), np.repeat(tw.embed[:1].numpy(), 3, 0))
