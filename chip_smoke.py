@@ -28,8 +28,26 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
                 dump taps (latents within 1e-5 of generate_full), --mimi-test,
                 --mimi-wave (frames * 1920 samples), --tokens --verify; both
                 kernels launched
-Launch counts are set to 0 before each of phases 4, 6 and 7 and read after.
-The line before the last is {"kernels": [...]}; the last is
+  8. serve   -- runtime/batching.ContinuousBatcher and runtime/server on the
+                card: (a) 6 ragged requests (3-8 frames, EOS off, one on the
+                host-prefix path) through 4 slots, frames as requested, first
+                int16 chunks within 4 LSB of the quantized offline PCM, and,
+                read back unclipped, whole streams within 1e-3 of the offline
+                f32 max; (b) the same with K = 4, split_admit and spec_admit:
+                frames equal, first chunks within 4 LSB and unclipped whole
+                streams within 1e-3 of (a); (c) 3 requests through 2 slots on
+                the card and on the CPU within 8 LSB; (d) B1 launched once per
+                layer by every admit group; (e) HTTP: /healthz, 4 concurrent
+                /tts, one /tts-stream, /stats; (f) printed only: closed-loop
+                serving (ids path, device noise, 10-50 frames) at 16 and 64
+                slots -- streams per chip, per-step wall, admission ms per
+                group, first-chunk p50/p95 from admission, a torch.profiler
+                table
+Launch counts are set to 0 before each of phases 4, 6 and 7 and read after;
+phase 8 sums them over its serving runs alone (B2 must stay at 0 there). The
+int16 gates of phases 6 and 8 (c) let a clipping waveform fall back to its
+f32 view at 1e-3 of max (the random full-size PCM clips). Printed last: a
+{"serve": ...} line, then {"kernels": [...]}, then
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -53,6 +71,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from ptts_torch import api, cli, synth  # noqa: E402
 from ptts_torch.ops.cuda import build  # noqa: E402
 from ptts_torch.ops.cuda import fused_attention as fa  # noqa: E402
+from ptts_torch.runtime import server, streaming  # noqa: E402
+from ptts_torch.runtime.batching import ContinuousBatcher, Request  # noqa: E402
 from ptts_torch.runtime.streaming import StreamingSession  # noqa: E402
 from ptts_tpu.io.wav import load_wav, quantize_i16  # noqa: E402
 from ptts_tpu.utils.timing import GLOBAL_STATS  # noqa: E402
@@ -86,6 +106,33 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     return {name: getattr(fa, name).launches for name in KERNELS}
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def lsb_or_clipped(got_i16: np.ndarray, want: np.ndarray, gate: int, what: str) -> int:
+    """Max int16 distance between ``got_i16`` and ``want`` (int16, or f32 PCM
+    quantized with quantize_i16); past ``gate`` only a clipping waveform
+    passes, on its f32 views at 1e-3 of max."""
+    check(got_i16.shape == want.shape, f"{what}: shapes {got_i16.shape} {want.shape}")
+    if want.dtype == np.int16:
+        want_i16, want_f32 = want, want / np.float32(32767.0)
+        clipped = float(np.mean(np.abs(want_i16) == 32767))
+    else:
+        want_i16, want_f32 = quantize_i16(want), np.clip(want, -1.0, 1.0)
+        clipped = float(np.mean(np.abs(want) > 1.0))
+    lsb = int(np.abs(got_i16.astype(np.int32) - want_i16.astype(np.int32)).max())
+    if lsb > gate:
+        check(clipped > 0, f"{what}: {lsb} LSB > {gate} with no clipping")
+        _, rel = rel_err(torch.from_numpy(got_i16 / np.float32(32767.0)),
+                         torch.from_numpy(want_f32))
+        print(f"  {what}: {lsb} LSB, PCM clips ({clipped:.4f}); f32 views rel {rel:.3e} "
+              f"(gate 1e-3)")
+        check(rel <= 1e-3, f"{what}: f32 views rel {rel:.3e} > 1e-3")
+    return lsb
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -132,11 +179,14 @@ def phase_kernels() -> dict:
     results = {"causal_attention_qkv": [], "window_attention_qkv": []}
     for dtype in (torch.float32, torch.bfloat16):
         tag = "f32" if dtype == torch.float32 else "bf16"
-        for T in (64, 128, 37, 100):
-            B, H, D = 4, 16, 64
+        # B = 8: the serving admission shape [admit_chunk, prefix_budget],
+        # padded entries at length 1
+        for B, T in ((4, 64), (4, 128), (4, 37), (4, 100), (8, 64), (8, 128)):
+            H, D = 16, 64
             qkv = torch.from_numpy(rng.standard_normal((B, T, 3 * H * D)).astype(np.float32))
             qkv = qkv.to(dev, dtype)
-            lens_list = [T, T // 2 + 3, 1, T - 7]
+            lens_list = ([T, T // 2 + 3, 1, T - 7] if B == 4
+                         else [T, 1, 1, T // 2 + 3, 1, 17, T - 5, 1])
             lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
             kw = dict(num_heads=H, head_dim=D)
             got, k_rot = fa.causal_attention_qkv(qkv, lens, **kw)
@@ -153,9 +203,9 @@ def phase_kernels() -> dict:
                         max_abs_err=max(abs_a, abs_k), max_rel_err=max(rel_a, rel_k),
                         ms=ms, plain_ms=plain_ms)
             results["causal_attention_qkv"].append(case)
-            print(f"B1 causal_attention_qkv {tag} T={T}: attn rel {rel_a:.3e}, k_rot rel "
+            print(f"B1 causal_attention_qkv {tag} B={B} T={T}: attn rel {rel_a:.3e}, k_rot rel "
                   f"{rel_k:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-            check(max(rel_a, rel_k) <= GATES[dtype], f"B1 {tag} T={T}: rel err "
+            check(max(rel_a, rel_k) <= GATES[dtype], f"B1 {tag} B={B} T={T}: rel err "
                   f"{max(rel_a, rel_k):.3e} > {GATES[dtype]}")
         for T in (1024, 800, 1):
             B, H, D, ctx = 2, 8, 64, 250
@@ -340,17 +390,9 @@ def phase_stream(gpu_ctx, cpu_ctx) -> dict:
 
     streamed = np.concatenate([c.pcm_i16 for c in gpu_ctx.stream(text8, params=p8)])
     offline = engine.generate(text8, params=p8).samples
-    lsb = int(np.abs(streamed.astype(np.int32) - quantize_i16(offline).astype(np.int32)).max())
-    clipped = float(np.mean(np.abs(offline) > 1.0))
+    lsb = lsb_or_clipped(streamed, offline, 8, "stream vs offline")
     print(f"stream: int16 vs quantized offline PCM, max {lsb} LSB (gate 8); offline |pcm| max "
-          f"{np.abs(offline).max():.4f}, share clipped {clipped:.4f}")
-    if lsb > 8:
-        # only a clipping waveform may fall back to the f32 views at 1e-3 of max
-        check(clipped > 0, f"stream vs offline: {lsb} LSB > 8 with no clipping")
-        _, rel = rel_err(torch.from_numpy(streamed / np.float32(32767.0)),
-                         torch.from_numpy(np.clip(offline, -1.0, 1.0)))
-        print(f"stream: PCM clips; f32 views rel {rel:.3e} (gate 1e-3)")
-        check(rel <= 1e-3, f"stream vs offline f32 views: {rel:.3e} > 1e-3")
+          f"{np.abs(offline).max():.4f}, share clipped {float(np.mean(np.abs(offline) > 1.0)):.4f}")
 
     rates = [chunk_times(engine, B) for B in (1, 8)]
     for r in rates:
@@ -411,6 +453,348 @@ def phase_cli(model_dir: str, gpu_ctx) -> dict:
     return launches
 
 
+SERVE_FRAMES = (3, 8, 5, 4, 7, 6)   # ragged num_frames of the equality requests
+SERVE_SEED = 7
+PCM_SCALE = 8.0  # unclipped readback: the random full-size PCM reaches |4.6|
+
+
+@contextlib.contextmanager
+def unclipped_pcm():
+    """While active, the serving step's device quantizer takes pcm /
+    PCM_SCALE, so the int16 chunks carry the whole waveform unclipped, at
+    PCM_SCALE / 32767 resolution (a power-of-two scale is exact in f32)."""
+    quantize = streaming.quantize_i16_device
+    streaming.quantize_i16_device = lambda pcm: quantize(pcm / PCM_SCALE)
+    try:
+        yield
+    finally:
+        streaming.quantize_i16_device = quantize
+
+
+def unclipped_view(pcm_i16: np.ndarray, what: str) -> np.ndarray:
+    """f32 PCM of an unclipped_pcm() run's int16 chunks."""
+    check(int(np.abs(pcm_i16.astype(np.int32)).max()) < 32767, f"{what}: scaled PCM clips")
+    return pcm_i16.astype(np.float32) * np.float32(PCM_SCALE / 32767.0)
+
+
+def rel_by_frame(got: np.ndarray, want: np.ndarray) -> list:
+    """Max |got - want| of each 1920-sample frame over max |want|."""
+    diff = np.abs(got.astype(np.float64) - want).reshape(-1, FRAME_SAMPLES).max(axis=1)
+    return [float(d) for d in diff / max(float(np.abs(want).max()), 1e-30)]
+
+
+def serve_batch(engine, texts, frames, host_prefix=(), **pool_kw) -> tuple:
+    """One request per (text, frames) through a fresh ContinuousBatcher, EOS
+    off, explicit seed (host parity noise: request rid draws seed + rid);
+    requests whose index is in ``host_prefix`` take the host-prefix
+    admission path. Returns (rids, {rid: Result}, batcher)."""
+    b = ContinuousBatcher(engine, **pool_kw)
+    cond, _ = engine._voice_cond(None)
+    rids = []
+    for j, (text, f) in enumerate(zip(texts, frames)):
+        req = b.prepare(text, params=api.Params(seed=SERVE_SEED, num_frames=f,
+                                                eos_enabled=False))
+        if j in host_prefix:
+            req = dataclasses.replace(req, prefix=engine._build_prefix(req.ids, cond), ids=None,
+                                      voice_idx=-1)
+        rids.append(b.enqueue(req))
+    return rids, b.drain(), b
+
+
+def serve_http(ctx) -> dict:
+    """server.serve on the card: /healthz, 4 concurrent /tts, one
+    /tts-stream, /stats."""
+    import http.client
+    import threading
+
+    httpd = server.serve(ctx, port=0, slots=4, max_len=192, prefix_budget=128)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    addr = httpd.server_address
+
+    def call(method, path, payload=None):
+        conn = http.client.HTTPConnection(*addr, timeout=300)
+        conn.request(method, path, None if payload is None else json.dumps(payload))
+        resp = conn.getresponse()
+        body = resp.read()
+        conn.close()
+        return resp.status, body
+
+    try:
+        status, body = call("GET", "/healthz")
+        check(status == 200 and body == b"ok", f"/healthz: {status} {body!r}")
+        outs = [None] * 4
+
+        def worker(i):
+            outs[i] = call("POST", "/tts", {"text": PROMPTS[i], "num_frames": 4, "seed": 20 + i,
+                                           "eos_enabled": False})
+
+        t0 = time.perf_counter()
+        workers = [threading.Thread(target=worker, args=(i,)) for i in range(4)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=300)
+        tts_s = time.perf_counter() - t0
+        for i, out in enumerate(outs):
+            check(out is not None and out[0] == 200, f"/tts {i}: {out and out[0]}")
+            body = out[1]
+            check(body[:4] == b"RIFF" and len(body) == 44 + 4 * FRAME_SAMPLES * 2,
+                  f"/tts {i}: {len(body)} bytes for 4 frames")
+        status, body = call("POST", "/tts-stream", {"text": PROMPTS[4], "num_frames": 4,
+                                                    "seed": 30, "eos_enabled": False})
+        check(status == 200 and len(body) == 4 * FRAME_SAMPLES * 2,
+              f"/tts-stream: {status}, {len(body)} bytes for 4 frames")
+        status, body = call("GET", "/stats")
+        serving = json.loads(body)["serving"]
+        check(status == 200 and serving["slots"] == 4 and serving["steps"] > 0,
+              f"/stats: {status} {serving}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        httpd.tts_service.close()
+        thread.join(timeout=30)
+    print(f"serve (e): HTTP /healthz ok; 4 concurrent /tts 4-frame WAVs in {tts_s:.3f} s; "
+          f"/tts-stream {4 * FRAME_SAMPLES * 2} bytes; /stats serving {serving}")
+    return dict(concurrent_tts_s=tts_s, stats_serving=serving)
+
+
+def serve_load(engine, slots: int, target: int = 200, max_seconds: float = 25.0,
+               profile_steps: int = 0, table: bool = False) -> dict:
+    """Closed-loop serving as bench.py's batcher bench: the ids path with one
+    registered 40-frame voice, seed=-1 device noise, ragged 10-50 frames,
+    prefix_budget 64, max_len 128, admit_chunk 8, K = 1, pipelined, the
+    queue topped up to refill every free slot each step."""
+    cfg = engine.flowlm_cfg
+    b = ContinuousBatcher(engine, slots=slots, max_len=128, admit_chunk=8, prefix_budget=64,
+                          max_num_steps=1, frames_per_step=1, pipeline=True)
+    rng = np.random.default_rng(0)
+    vidx = b.register_voice("bench", (rng.standard_normal((40, cfg.d_model)) * 0.02)
+                            .astype(np.float32))
+    check(vidx >= 0, "serve load: voice bank refused the 40-frame voice")
+    admit_t, first_ms, pending = {}, [], set()
+
+    def top_up():
+        while len(b.queue) < slots + b.admit_chunk:
+            with b._rid_lock:
+                rid = b._next_rid
+                b._next_rid += 1
+            ids = rng.integers(1, cfg.vocab, size=int(rng.integers(4, 21))).astype(np.int32)
+            b.enqueue(Request(rid=rid, prefix=None, noise=None,
+                              max_frames=int(rng.integers(10, 51)), eos_after=0, num_steps=1,
+                              eos_threshold=np.float32(1e30), eos_min_frames=1, ids=ids,
+                              voice_idx=vidx, noise_seed=int(rng.integers(0, 2**31)), temp=0.7))
+            pending.add(rid)
+
+    def note(when):
+        for req in b.slot_req:
+            if req is not None and req.rid not in admit_t:
+                admit_t[req.rid] = when
+        done = []
+        for rid in pending:
+            ts = b.first_chunk_t.get(rid)
+            if ts is None and rid in b.finished and b.finished[rid].first_chunk_t >= 0:
+                ts = b.finished[rid].first_chunk_t
+            if ts is not None:
+                if rid in admit_t:
+                    first_ms.append(1e3 * (ts - admit_t[rid]))
+                done.append(rid)
+            elif rid in b.finished or rid not in b.chunks:
+                done.append(rid)
+        pending.difference_update(done)
+
+    for _ in range(12):  # warm-up: allocator pools, cuDNN choices at this B
+        top_up()
+        b.step()
+    sync(engine.device)
+    b.finished.clear()
+    pending.clear()
+    b.phase_s = {k: 0.0 for k in b.phase_s}
+    b.n_steps = b.n_admit_groups = 0
+    frames = finished = 0
+    t0 = time.perf_counter()
+    while finished < target and time.perf_counter() - t0 < max_seconds:
+        top_up()
+        t_step = time.perf_counter()
+        b.step()
+        note(t_step)
+        for rid, res in list(b.finished.items()):
+            frames += res.frames
+            finished += 1
+            del b.finished[rid]
+    sync(engine.device)
+    wall = time.perf_counter() - t0
+    check(finished > 0, f"serve load at {slots} slots finished no request")
+    out = dict(slots=slots, finished=finished, frames=frames, wall_s=wall,
+               audio_s_per_s=frames * 0.08 / wall, steps=b.n_steps,
+               step_ms=1e3 * wall / max(b.n_steps, 1),
+               admit_ms_per_group=1e3 * b.phase_s["admit"] / max(b.n_admit_groups, 1),
+               admit_groups=b.n_admit_groups,
+               phase_ms_per_step={k: 1e3 * v / max(b.n_steps, 1) for k, v in b.phase_s.items()},
+               first_chunk_p50_ms=float(np.percentile(first_ms, 50)) if first_ms else -1.0,
+               first_chunk_p95_ms=float(np.percentile(first_ms, 95)) if first_ms else -1.0)
+    if profile_steps:
+        out["profile"] = profile_load(b, top_up, profile_steps, table)
+    return out
+
+
+def profile_load(b, top_up, steps: int, table: bool) -> dict:
+    """torch.profiler over ``steps`` warm closed-loop batcher steps (prints
+    key_averages() when ``table``); returns kernels per step and the device
+    busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            top_up()
+            b.step()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    if table:
+        print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20))
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, end = 0.0, -float("inf")
+    for a, z in spans:  # union of device intervals
+        if z > end:
+            busy += z - max(a, end)
+            end = z
+    check(len(kernels) > 0, "the profiler saw no device kernel")
+    return dict(steps=steps, kernels_per_step=len(kernels) / steps,
+                device_us_per_step=busy / steps, profiled_wall_us_per_step=wall_us / steps,
+                busy_share=busy / wall_us)
+
+
+def phase_serve(gpu_ctx, cpu_ctx, measure: bool = True) -> dict:
+    """Phase 8. Launch counts are summed over the serving runs alone: each
+    is bracketed by reset_launches()/read_launches(); the offline
+    references and the CPU run are not."""
+    engine = gpu_ctx.engine
+    texts = PROMPTS[:6]
+    pool_a = dict(slots=4, admit_chunk=2, prefix_budget=128, max_len=192)
+    served = dict.fromkeys(KERNELS, 0)
+
+    def on_path(fn, *args, **kw):
+        reset_launches()
+        out = fn(*args, **kw)
+        for name, n in read_launches().items():
+            served[name] += n
+        return out
+
+    t0 = time.perf_counter()
+    rids, res_a, b = on_path(serve_batch, engine, texts, SERVE_FRAMES, host_prefix=(5,), **pool_a)
+    t_a = time.perf_counter() - t0
+    # (d): every admit group prefilled through B1, once per layer
+    admit_launches = served["causal_attention_qkv"]
+    n_layers = engine.flowlm_cfg.num_layers
+    print(f"serve (d): B1 launched {admit_launches} times by (a)'s {b.n_admit_groups} admit "
+          f"groups ({n_layers} layers)")
+    check(b.n_admit_groups >= 3, f"serve (a): {b.n_admit_groups} admit groups")
+    check(admit_launches == n_layers * b.n_admit_groups > 0,
+          f"serve (d): admission launched B1 {admit_launches} times, not once per layer and group")
+    # The same requests again with the quantizer scaled (unclipped_pcm), so
+    # the whole streams compare unclipped: (a) against the offline f32 PCM
+    # and (b) against (a), each at 1e-3 of max. int16 first chunks keep the
+    # 4 LSB gate; whole-stream int16 distances are printed only (the random
+    # full-size model amplifies float rounding frame by frame; PERF.md).
+    with unclipped_pcm():
+        _, res_au, _ = on_path(serve_batch, engine, texts, SERVE_FRAMES, host_prefix=(5,),
+                               **pool_a)
+    lsb_a, first_a, rel_a, frames_a, offline = [], [], [], {}, {}
+    for rid, text, f in zip(rids, texts, SERVE_FRAMES):
+        r = res_a[rid]
+        check(r.frames == res_au[rid].frames == f,
+              f"serve (a) rid {rid}: {r.frames} / {res_au[rid].frames} frames, asked {f}")
+        check(r.pcm_i16.shape == (f * FRAME_SAMPLES,), f"serve (a) rid {rid}: {r.pcm_i16.shape}")
+        offline[rid] = engine.generate(text, params=api.Params(seed=SERVE_SEED + rid, num_frames=f,
+                                                               eos_enabled=False)).samples
+        first_a.append(lsb_or_clipped(r.pcm_i16[:FRAME_SAMPLES], offline[rid][:FRAME_SAMPLES], 4,
+                                      f"serve (a) rid {rid} first chunk vs offline"))
+        lsb_a.append(int(np.abs(r.pcm_i16.astype(np.int32)
+                                - quantize_i16(offline[rid]).astype(np.int32)).max()))
+        frames_a[rid] = rel_by_frame(unclipped_view(res_au[rid].pcm_i16, f"serve (a) rid {rid}"),
+                                     offline[rid])
+        rel_a.append(max(frames_a[rid]))
+    print(f"serve (a): 6 requests (frames {SERVE_FRAMES}, rid 5 on the host-prefix path) "
+          f"through 4 slots in {1e3 * t_a:.1f} ms, {b.n_admit_groups} admit groups; int16 vs "
+          f"quantized offline: first chunk max LSB {first_a} (gate 4), whole stream {lsb_a} "
+          f"(printed); unclipped vs offline f32, rel of max {[f'{x:.3e}' for x in rel_a]} "
+          f"(gate 1e-3); offline |pcm| max "
+          f"{ {k: round(float(np.abs(v).max()), 3) for k, v in offline.items()} }")
+    for rid in rids:
+        print(f"  serve (a) rid {rid} unclipped rel by frame "
+              f"{[f'{x:.2e}' for x in frames_a[rid]]}")
+
+    spec = dict(host_prefix=(5,), frames_per_step=4, split_admit=True, spec_admit=True, **pool_a)
+    rids_b, res_b, _ = on_path(serve_batch, engine, texts, SERVE_FRAMES, **spec)
+    with unclipped_pcm():
+        _, res_bu, _ = on_path(serve_batch, engine, texts, SERVE_FRAMES, **spec)
+    check(rids_b == rids, f"serve (b): rids {rids_b} != {rids}")
+    lsb_b, first_b, rel_b = [], [], []
+    for rid in rids:
+        got, ref = res_b[rid].pcm_i16, res_a[rid].pcm_i16
+        check(res_b[rid].frames == res_bu[rid].frames == res_a[rid].frames,
+              f"serve (b) rid {rid}: {res_b[rid].frames} frames vs {res_a[rid].frames}")
+        first_b.append(lsb_or_clipped(got[:FRAME_SAMPLES], ref[:FRAME_SAMPLES], 4,
+                                      f"serve (b) rid {rid} first chunk vs (a)"))
+        lsb_b.append(int(np.abs(got.astype(np.int32) - ref.astype(np.int32)).max()))
+        ref_u = unclipped_view(res_au[rid].pcm_i16, f"serve (a) rid {rid}")
+        rel_b.append(max(rel_by_frame(unclipped_view(res_bu[rid].pcm_i16,
+                                                     f"serve (b) rid {rid}"), ref_u)))
+    print(f"serve (b): K=4 + split_admit + spec_admit vs (a): frames equal; first chunk max "
+          f"LSB {first_b} (gate 4), whole stream {lsb_b} (printed); unclipped rel of max "
+          f"{[f'{x:.3e}' for x in rel_b]} (gate 1e-3)")
+    for what, rels in (("(a) vs offline", rel_a), ("(b) vs (a)", rel_b)):
+        for rid, rel in zip(rids, rels):
+            check(rel <= 1e-3, f"serve {what} rid {rid}: unclipped rel {rel:.3e} > 1e-3")
+
+    pool_c = dict(slots=2, admit_chunk=2, prefix_budget=128, max_len=192)
+    frames_c = (4, 4, 4)
+    rids_g, res_g, _ = on_path(serve_batch, engine, texts[:3], frames_c, **pool_c)
+    rids_c, res_c, _ = serve_batch(cpu_ctx.engine, texts[:3], frames_c, **pool_c)
+    check(rids_g == rids_c, f"serve (c): rids {rids_g} != {rids_c}")
+    lsb_c = []
+    for rid in rids_g:
+        check(res_g[rid].frames == res_c[rid].frames == 4, f"serve (c) rid {rid}: frames")
+        lsb_c.append(lsb_or_clipped(res_g[rid].pcm_i16, res_c[rid].pcm_i16, 8,
+                                    f"serve (c) rid {rid} card vs CPU"))
+    print(f"serve (c): 3 requests through 2 slots, card vs CPU max LSB {lsb_c} (gate 8)")
+
+    http = on_path(serve_http, gpu_ctx)
+    out = dict(lsb_a=lsb_a, first_a=first_a, rel_a=rel_a, lsb_b=lsb_b, first_b=first_b,
+               rel_b=rel_b, lsb_c=lsb_c, equality_ms=1e3 * t_a, http=http)
+    if measure:
+        on_card = engine.device.type == "cuda"
+        out["load"] = [on_path(serve_load, engine, slots, profile_steps=8 if on_card else 0,
+                               table=slots == 64) for slots in (16, 64)]
+        for r in out["load"]:
+            print(f"serve (f): {r['slots']} slots: {r['finished']} streams finished in "
+                  f"{r['wall_s']:.3f} s ({r['steps']} steps), {r['audio_s_per_s']:.2f} audio s "
+                  f"per wall s; {r['step_ms']:.3f} ms per step; admission "
+                  f"{r['admit_ms_per_group']:.3f} ms per group ({r['admit_groups']} groups); "
+                  f"first chunk from admission p50 {r['first_chunk_p50_ms']:.2f} ms, p95 "
+                  f"{r['first_chunk_p95_ms']:.2f} ms; phases ms/step "
+                  f"{ {k: round(v, 3) for k, v in r['phase_ms_per_step'].items()} }")
+            prof = r.get("profile")
+            if prof:
+                print(f"serve (f): profiled {r['slots']}-slot step: "
+                      f"{prof['kernels_per_step']:.1f} device kernels per step, device busy "
+                      f"{prof['device_us_per_step']:.1f} us of "
+                      f"{prof['profiled_wall_us_per_step']:.1f} us profiled wall per step "
+                      f"(busy share {prof['busy_share']:.3f})")
+    out["launches"] = served
+    print(f"serve: kernel launches on the serving runs {served}")
+    check(served["causal_attention_qkv"] > 0, "B1 was not launched on the serving path")
+    check(served["window_attention_qkv"] == 0,
+          f"B2 launched {served['window_attention_qkv']} times on the serving path, whose "
+          f"streaming Mimi has no window kernel")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -430,12 +814,17 @@ def main() -> int:
         phase_parity(cpu_ctx, ctx)
         stream = phase_stream(ctx, cpu_ctx)
         cli_launches = phase_cli(model_dir, ctx)
+        serve = phase_serve(ctx, cpu_ctx)
         ctx.close()
         cpu_ctx.close()
     by_path = {name: {"slice": launches[name], "stream": stream["launches"][name],
-                      "cli": cli_launches[name]} for name in KERNELS}
+                      "cli": cli_launches[name], "serve": serve["launches"][name]}
+               for name in KERNELS}
     print(json.dumps({"stream": {k: stream[k] for k in ("ttfc_first_ms", "ttfc_warm_ms", "lsb",
                                                         "rates", "profile")}}))
+    print(json.dumps({"serve": {k: serve[k] for k in ("lsb_a", "first_a", "rel_a", "lsb_b",
+                                                      "first_b", "rel_b", "lsb_c", "equality_ms",
+                                                      "http", "load", "launches")}}))
 
     kernels = []
     for name, replaces in (("causal_attention_qkv", f"{PALLAS}:361"),

@@ -26,10 +26,11 @@ from ptts_tpu import api
 from ptts_tpu.io.wav import Audio
 from ptts_tpu.rng import frame_noise
 from ptts_tpu.text import estimate_frames, prepare_text
-from ptts_tpu.utils.timing import span
+from ptts_tpu.utils.timing import GLOBAL_STATS, span
 
 from .. import convert
 from ..models import flowlm, mimi
+from ..utils import sanitize
 
 
 def _round_up(x: int, m: int) -> int:
@@ -73,6 +74,9 @@ class TTSEngine:
 
         fw_host = flowlm.load_weights(ctx.weights, self.flowlm_cfg)
         mw_host = mimi.load_weights(ctx.weights, self.mimi_cfg)
+        # PTTS_SANITIZE=1: a corrupt checkpoint fails here, naming the tensor
+        sanitize.check_tree("load_weights(flowlm)", fw_host)
+        sanitize.check_tree("load_weights(mimi)", mw_host)
         # host copies for prefix assembly (off the device path), always f32
         self._embed = np.asarray(fw_host["embed"], np.float32)
         self._input_linear = np.asarray(fw_host["input_linear"], np.float32)
@@ -161,13 +165,16 @@ class TTSEngine:
         )
         # cap frames_used at the caller's true max (bucketing may exceed it)
         capped = torch.clamp(res.frames_used, max=max_frames)
+        sanitize.check_finite("generate_latents_batch", res.latents, res.eos_logits,
+                              names=("latents", "eos_logits"))
         return res._replace(frames_used=capped, cache=None, x=None)
 
     @torch.inference_mode()
     def decode_audio_batch(self, scaled_latents: torch.Tensor) -> np.ndarray:
         """[B, F, latent_dim] scaled latents -> PCM [B, F * frame_samples] (f32)."""
-        pcm = mimi.decode(self.mw, scaled_latents, self.mimi_cfg)
-        return pcm.float().cpu().numpy()
+        pcm = mimi.decode(self.mw, scaled_latents, self.mimi_cfg).float().cpu().numpy()
+        sanitize.check_finite("decode_audio_batch", pcm, names=("pcm",))
+        return pcm
 
     @torch.inference_mode()
     def generate_full(self, text: str, voice: Optional[str] = None,
@@ -227,6 +234,11 @@ class TTSEngine:
             if decode_audio:
                 self.decode_audio_batch(flowlm.scale_latents(self.fw, res.latents))
         return time.perf_counter() - t0
+
+    def stats(self) -> dict:
+        """Per-span timing summary (count, total, min, max), as the JAX
+        engine reports it; the server's GET /stats reads it."""
+        return GLOBAL_STATS.summary()
 
     @torch.inference_mode()
     def batch_generate(self, texts: Sequence[str],

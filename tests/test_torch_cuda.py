@@ -66,6 +66,25 @@ def test_causal_kernel_matches_plain(dev, dtype, T, lengths):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [64, 128])
+def test_causal_kernel_at_the_admission_shape(dev, dtype, T):
+    """B1 as serving admission calls it: [admit_chunk = 8, prefix_budget,
+    3 * 1024] with the group's padded entries at length 1."""
+    lengths = [T, 1, 1, T // 2 + 3, 1, 17, T - 5, 1]
+    H = 16
+    qkv = qkv_on(dev, dtype, len(lengths), T, H, seed=1000 + T)
+    for b, n in enumerate(lengths):
+        qkv[b, n:, H * 64:] = 1e20
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    got, k_rot = fa.causal_attention_qkv(qkv, lens, num_heads=H, head_dim=64)
+    want, want_k = fa.causal_attention_qkv_plain(qkv, lens, num_heads=H, head_dim=64)
+    for b, n in enumerate(lengths):
+        assert torch.isfinite(got[b, :n]).all()
+        assert rel(got[b, :n], want[b, :n]) <= GATES[dtype]
+    assert rel(k_rot, want_k) <= GATES[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,context", [(2, 1024, 250), (2, 800, 250), (1, 37, 250),
                                          (3, 300, 5), (1, 256, 64)])
 def test_window_kernel_matches_plain(dev, dtype, B, T, context):
@@ -141,3 +160,33 @@ def test_full_width_stream_on_card_matches_cpu(dev, tmp_path):
     assert gpu.shape == cpu.shape == (2, 8 * 1920)
     assert torch.isfinite(gpu).all()
     assert rel(gpu, cpu) <= 1e-3
+
+
+def test_full_width_batcher_on_card_matches_cpu(dev, tmp_path):
+    """The continuous batcher at default width on the card (B1 at every
+    admission) against the CPU: 3 requests through 2 slots, 4 frames, EOS
+    off, explicit seeds. Frames equal; int16 within 8 LSB, or, where the
+    random full-size PCM clips, int16/32767 views within 1e-3 of max."""
+    from ptts_torch.runtime.batching import ContinuousBatcher
+
+    path = synth.write_model_dir(str(tmp_path), seed=0)
+    texts = ["Hello world!", "A second, longer stream of text.", "Third."]
+    out = {}
+    for device in ("cuda", "cpu"):
+        b = ContinuousBatcher(api.load_dir(path, device=device).engine, slots=2, admit_chunk=2,
+                              prefix_budget=128, max_len=192)
+        before = fa.causal_attention_qkv.launches
+        rids = [b.submit(t, params=api.Params(seed=3, num_frames=4, eos_enabled=False))
+                for t in texts]
+        out[device] = (rids, b.drain(), fa.causal_attention_qkv.launches - before)
+    (rids, gpu, launched), (rids_c, cpu, _) = out["cuda"], out["cpu"]
+    assert rids == rids_c
+    assert launched == 6 * 2  # one per layer, two admit groups
+    for rid in rids:
+        g, c = gpu[rid].pcm_i16, cpu[rid].pcm_i16
+        assert gpu[rid].frames == cpu[rid].frames == 4 and g.shape == c.shape == (4 * 1920,)
+        lsb = int(np.abs(g.astype(np.int32) - c.astype(np.int32)).max())
+        if lsb > 8:
+            assert (np.abs(c) == 32767).any(), f"rid {rid}: {lsb} LSB with no clipping"
+            assert rel(torch.from_numpy(g / np.float32(32767.0)),
+                       torch.from_numpy(c / np.float32(32767.0))) <= 1e-3
