@@ -41,13 +41,30 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
                 /tts, one /tts-stream, /stats; (f) printed only: closed-loop
                 serving (ids path, device noise, 10-50 frames) at 16 and 64
                 slots -- streams per chip, per-step wall, admission ms per
-                group, first-chunk p50/p95 from admission, a torch.profiler
-                table
+                group, first-chunk p50/p95 from admission, a device-time
+                table (ptts_torch.utils.profiling)
+  9. mesh    -- the batcher's pool sharded over a device mesh
+                (ptts_torch.parallel.mesh): every visible GPU, or with one
+                GPU a rehearsal on it (2 host groups x 2 shards, all on
+                cuda:0): (a) phase 8 (a)'s 6 requests through the 2-host
+                sharded pool against the unsharded one: frames equal, first
+                int16 chunks within 4 LSB, unclipped whole streams within
+                1e-3 of max, every shard's pool tensors on its own device;
+                (b) B1 launched once per layer by every admit group of every
+                shard; (c) submit(host=h) lands in host h's rows; (d)
+                spec_admit on a 1-D 2-shard mesh: all finish, no receipt
+                left; (e) ptts_torch.dryrun.dryrun_multichip(4, "cuda")
+                passes with B1 and B2 launched, and entry("cuda") runs; (f)
+                printed only: closed-loop serving at 64 slots on 1 shard and
+                on 2 shards (streams per chip, per-step wall and its
+                admit/dispatch/collect split, kernels per step)
 Launch counts are set to 0 before each of phases 4, 6 and 7 and read after;
-phase 8 sums them over its serving runs alone (B2 must stay at 0 there). The
-int16 gates of phases 6 and 8 (c) let a clipping waveform fall back to its
-f32 view at 1e-3 of max (the random full-size PCM clips). Printed last: a
-{"serve": ...} line, then {"kernels": [...]}, then
+phase 8 sums them over its serving runs alone (B2 must stay at 0 there),
+phase 9 over its sharded serving runs and the dry run alone. The int16
+gates of phases 6 and 8 (c) let a clipping waveform fall back to its f32
+view at 1e-3 of max (the random full-size PCM clips).
+Printed last: a {"serve": ...} line, a {"mesh": ...} line, then
+{"kernels": [...]}, then
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -68,12 +85,14 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from ptts_torch import api, cli, synth  # noqa: E402
+from ptts_torch import api, cli, dryrun, synth  # noqa: E402
 from ptts_torch.ops.cuda import build  # noqa: E402
 from ptts_torch.ops.cuda import fused_attention as fa  # noqa: E402
+from ptts_torch.parallel import mesh as pmesh  # noqa: E402
 from ptts_torch.runtime import server, streaming  # noqa: E402
 from ptts_torch.runtime.batching import ContinuousBatcher, Request  # noqa: E402
 from ptts_torch.runtime.streaming import StreamingSession  # noqa: E402
+from ptts_torch.utils import profiling  # noqa: E402
 from ptts_tpu.io.wav import load_wav, quantize_i16  # noqa: E402
 from ptts_tpu.utils.timing import GLOBAL_STATS  # noqa: E402
 
@@ -109,8 +128,10 @@ def read_launches() -> dict:
 
 
 def sync(device) -> None:
+    """Wait for every visible card (a mesh may span several)."""
     if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
 
 
 def lsb_or_clipped(got_i16: np.ndarray, want: np.ndarray, gate: int, what: str) -> int:
@@ -316,37 +337,38 @@ def chunk_times(engine, B: int, frames: int = 32) -> dict:
                 max_ms=float(np.max(times)), first_ms=times[0])
 
 
-def profile_steps(engine, steps: int = 8) -> dict:
-    """torch.profiler over ``steps`` warm streaming steps at B = 1: prints
-    key_averages(); returns kernels per step and the device busy share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def trace_figures(trace_dir: str, steps: int, wall_us: float, table: bool) -> dict:
+    """Kernels and device time per step, and the device busy share of the
+    host-clock wall, from a profiling.device_trace of ``steps`` steps
+    (prints the device-time table when ``table``)."""
+    if table:
+        print(profiling.format_summary(trace_dir, 20))
+    ops = profiling.summarize_trace(trace_dir)
+    kernels = sum(v["count"] for name, v in ops.items()
+                  if not name.startswith(("Memcpy", "Memset")))
+    busy = profiling.busy_us(trace_dir)
+    check(kernels > 0, "the profiler saw no device kernel")
+    return dict(steps=steps, kernels_per_step=kernels / steps,
+                device_us_per_step=busy / steps, profiled_wall_us_per_step=wall_us / steps,
+                busy_share=busy / wall_us)
 
+
+def profile_steps(engine, steps: int = 8) -> dict:
+    """A device trace of ``steps`` warm streaming steps at B = 1: prints
+    the device-time table; returns kernels per step and the busy share."""
     sess = StreamingSession.start(engine, ["Hello world!"],
                                   params=api.Params(seed=5, num_frames=steps + 4,
                                                     eos_enabled=False))
     for _ in range(4):
         sess.step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiling.device_trace("stream_steps", force=True) as trace_dir:
         t0 = time.perf_counter()
         for _ in range(steps):
             sess.step()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20))
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
-    busy, end = 0.0, -float("inf")
-    for a, b in spans:  # union of device intervals
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    check(len(kernels) > 0, "the profiler saw no device kernel")
-    return dict(steps=steps, kernels_per_step=len(kernels) / steps,
-                device_us_per_step=busy / steps, profiled_wall_us_per_step=wall_us / steps,
-                busy_share=busy / wall_us)
+    return trace_figures(trace_dir, steps, wall_us, table=True)
 
 
 def phase_stream(gpu_ctx, cpu_ctx) -> dict:
@@ -560,14 +582,15 @@ def serve_http(ctx) -> dict:
 
 
 def serve_load(engine, slots: int, target: int = 200, max_seconds: float = 25.0,
-               profile_steps: int = 0, table: bool = False) -> dict:
+               profile_steps: int = 0, table: bool = False, mesh=None) -> dict:
     """Closed-loop serving as bench.py's batcher bench: the ids path with one
     registered 40-frame voice, seed=-1 device noise, ragged 10-50 frames,
     prefix_budget 64, max_len 128, admit_chunk 8, K = 1, pipelined, the
-    queue topped up to refill every free slot each step."""
+    queue topped up to refill every free slot each step; the pool sharded
+    over ``mesh`` when given."""
     cfg = engine.flowlm_cfg
     b = ContinuousBatcher(engine, slots=slots, max_len=128, admit_chunk=8, prefix_budget=64,
-                          max_num_steps=1, frames_per_step=1, pipeline=True)
+                          max_num_steps=1, frames_per_step=1, pipeline=True, mesh=mesh)
     rng = np.random.default_rng(0)
     vidx = b.register_voice("bench", (rng.standard_normal((40, cfg.d_model)) * 0.02)
                             .astype(np.float32))
@@ -625,7 +648,7 @@ def serve_load(engine, slots: int, target: int = 200, max_seconds: float = 25.0,
     sync(engine.device)
     wall = time.perf_counter() - t0
     check(finished > 0, f"serve load at {slots} slots finished no request")
-    out = dict(slots=slots, finished=finished, frames=frames, wall_s=wall,
+    out = dict(slots=slots, shards=len(b.shards), finished=finished, frames=frames, wall_s=wall,
                audio_s_per_s=frames * 0.08 / wall, steps=b.n_steps,
                step_ms=1e3 * wall / max(b.n_steps, 1),
                admit_ms_per_group=1e3 * b.phase_s["admit"] / max(b.n_admit_groups, 1),
@@ -639,34 +662,19 @@ def serve_load(engine, slots: int, target: int = 200, max_seconds: float = 25.0,
 
 
 def profile_load(b, top_up, steps: int, table: bool) -> dict:
-    """torch.profiler over ``steps`` warm closed-loop batcher steps (prints
-    key_averages() when ``table``); returns kernels per step and the device
-    busy share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    """A device trace of ``steps`` warm closed-loop batcher steps (prints
+    the device-time table when ``table``); returns kernels per step and
+    the device busy share."""
+    sync("cuda")
+    with profiling.device_trace(f"serve_{b.slots}_slots_{len(b.shards)}_shards",
+                                force=True) as trace_dir:
         t0 = time.perf_counter()
         for _ in range(steps):
             top_up()
             b.step()
-        torch.cuda.synchronize()
+        sync("cuda")
         wall_us = 1e6 * (time.perf_counter() - t0)
-    if table:
-        print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20))
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
-    busy, end = 0.0, -float("inf")
-    for a, z in spans:  # union of device intervals
-        if z > end:
-            busy += z - max(a, end)
-            end = z
-    check(len(kernels) > 0, "the profiler saw no device kernel")
-    return dict(steps=steps, kernels_per_step=len(kernels) / steps,
-                device_us_per_step=busy / steps, profiled_wall_us_per_step=wall_us / steps,
-                busy_share=busy / wall_us)
+    return trace_figures(trace_dir, steps, wall_us, table)
 
 
 def phase_serve(gpu_ctx, cpu_ctx, measure: bool = True) -> dict:
@@ -766,7 +774,8 @@ def phase_serve(gpu_ctx, cpu_ctx, measure: bool = True) -> dict:
 
     http = on_path(serve_http, gpu_ctx)
     out = dict(lsb_a=lsb_a, first_a=first_a, rel_a=rel_a, lsb_b=lsb_b, first_b=first_b,
-               rel_b=rel_b, lsb_c=lsb_c, equality_ms=1e3 * t_a, http=http)
+               rel_b=rel_b, lsb_c=lsb_c, equality_ms=1e3 * t_a, http=http,
+               pool_a=(rids, res_a, res_au))
     if measure:
         on_card = engine.device.type == "cuda"
         out["load"] = [on_path(serve_load, engine, slots, profile_steps=8 if on_card else 0,
@@ -795,6 +804,134 @@ def phase_serve(gpu_ctx, cpu_ctx, measure: bool = True) -> dict:
     return out
 
 
+def mesh_layouts() -> tuple:
+    """(2-host mesh, 1-D 2-shard mesh, GPU count): over the visible GPUs, or
+    with one GPU its rehearsal on cuda:0 (2 host groups x 2 shards)."""
+    n = torch.cuda.device_count()
+    if n == 1:
+        return (pmesh.make_multihost_mesh(2, ["cuda:0"] * 4),
+                pmesh.make_mesh(["cuda:0"] * 2), n)
+    devs = [f"cuda:{i}" for i in range(n)]
+    # at most 4 positions: phase 8 (a)'s pool has 4 slots, and a shard may not be empty
+    return pmesh.make_multihost_mesh(2, devs[: min(4, n - n % 2)]), pmesh.make_mesh(devs[:2]), n
+
+
+def phase_mesh(gpu_ctx, unsharded, measure: bool = True) -> dict:
+    """Phase 9: phase 8 (a)'s requests through the sharded pool against the
+    unsharded results ``unsharded`` = (rids, int16 results, unclipped
+    results); host pinning, spec_admit, the dry run; closed-loop figures.
+    Launch counts are summed over this phase's sharded serving runs and the
+    dry run; the unsharded baseline of (f) is not counted."""
+    engine = gpu_ctx.engine
+    hmesh, mesh1, n_gpu = mesh_layouts()
+    names = [torch.cuda.get_device_name(i) for i in range(n_gpu)]
+    print(f"mesh: {n_gpu} visible GPU(s) {names}; 2-host mesh {hmesh.devices}, "
+          f"1-D mesh {mesh1.device_list}")
+    texts = PROMPTS[:6]
+    pool_a = dict(slots=4, admit_chunk=2, prefix_budget=128, max_len=192)
+    n_layers = engine.flowlm_cfg.num_layers
+    served = dict.fromkeys(KERNELS, 0)
+
+    def on_path(fn, *args, **kw):
+        reset_launches()
+        out = fn(*args, **kw)
+        for name, n in read_launches().items():
+            served[name] += n
+        return out
+
+    # (a) equality with the unsharded pool; (b) B1 once per layer per group
+    rids_u, res_u, res_uu = unsharded
+    rids, res_s, b = on_path(serve_batch, engine, texts, SERVE_FRAMES, host_prefix=(5,),
+                             mesh=hmesh, **pool_a)
+    groups, b1 = b.n_admit_groups, read_launches()["causal_attention_qkv"]
+    print(f"mesh (b): B1 launched {b1} times by {groups} admit groups over "
+          f"{len(b.shards)} shards ({n_layers} layers)")
+    check(b1 == n_layers * groups > 0,
+          f"mesh (b): B1 launched {b1} times, not once per layer and admit group")
+    check(rids == rids_u, f"mesh (a): rids {rids} != {rids_u}")
+    for sh in b.shards:
+        tensors = (sh.cache.k, sh.x, sh.done, sh.noise_tab, sh.time_embs, sh.cond_bank,
+                   sh.mimi_state["ring"]["k"], *sh.params_dev)
+        check(all(t.device == sh.device for t in tensors),
+              f"mesh (a): shard {sh.index}'s pool is not all on {sh.device}")
+    with unclipped_pcm():
+        _, res_su, _ = on_path(serve_batch, engine, texts, SERVE_FRAMES, host_prefix=(5,),
+                               mesh=hmesh, **pool_a)
+    first, rel, whole = [], [], []
+    for rid in rids:
+        got, ref = res_s[rid].pcm_i16, res_u[rid].pcm_i16
+        check(res_s[rid].frames == res_su[rid].frames == res_u[rid].frames,
+              f"mesh (a) rid {rid}: {res_s[rid].frames} frames vs {res_u[rid].frames}")
+        first.append(lsb_or_clipped(got[:FRAME_SAMPLES], ref[:FRAME_SAMPLES], 4,
+                                    f"mesh (a) rid {rid} first chunk vs unsharded"))
+        whole.append(int(np.abs(got.astype(np.int32) - ref.astype(np.int32)).max()))
+        rel.append(max(rel_by_frame(unclipped_view(res_su[rid].pcm_i16, f"mesh (a) rid {rid}"),
+                                    unclipped_view(res_uu[rid].pcm_i16,
+                                                   f"serve (a) rid {rid}"))))
+    print(f"mesh (a): 6 requests through {len(b.shards)} shards vs unsharded: frames equal; "
+          f"first chunk max LSB {first} (gate 4), whole stream {whole} (printed); unclipped "
+          f"rel of max {[f'{x:.3e}' for x in rel]} (gate 1e-3)")
+    for rid, r in zip(rids, rel):
+        check(r <= 1e-3, f"mesh (a) rid {rid}: unclipped rel {r:.3e} > 1e-3")
+
+    # (c) host pinning
+    bp = ContinuousBatcher(engine, mesh=hmesh, **pool_a)
+    p = api.Params(seed=SERVE_SEED, num_frames=3, eos_enabled=False)
+    pinned = {bp.submit(texts[h], params=p, host=h): h for h in (0, 1, 1)}
+    on_path(bp.step)
+    slot_of = {req.rid: s for s, req in enumerate(bp.slot_req) if req is not None}
+    check(all(slot_of[rid] in bp._host_slots[h] for rid, h in pinned.items()),
+          f"mesh (c): rows {slot_of} not in their host groups' {bp._host_slots}")
+    res_p = on_path(bp.drain)
+    check(all(res_p[rid].frames == 3 for rid in pinned), "mesh (c): pinned requests' frames")
+    print(f"mesh (c): submit(host=h) -> rows {slot_of} of host groups {bp._host_slots}")
+
+    # (d) spec_admit on a 1-D 2-shard mesh
+    rids_d, res_d, bd = on_path(serve_batch, engine, texts, SERVE_FRAMES, mesh=mesh1,
+                                spec_admit=True, pipeline=True, **pool_a)
+    check(all(res_d[rid].frames == f for rid, f in zip(rids_d, SERVE_FRAMES)),
+          "mesh (d): spec_admit frames")
+    check(bd._spec_inflight == 0 and not bd._receipts, "mesh (d): spec_admit left a receipt")
+    print(f"mesh (d): spec_admit over {len(bd.shards)} shards: {len(res_d)} requests "
+          f"finished, frames {[res_d[r].frames for r in rids_d]}, no receipt left")
+
+    # (e) the dry run and the frame-step entry
+    t0 = time.perf_counter()
+    on_path(dryrun.dryrun_multichip, 4, "cuda")
+    dry = read_launches()
+    t_dry = time.perf_counter() - t0
+    check(all(dry[name] > 0 for name in KERNELS), f"mesh (e): dry-run launches {dry}")
+    fn, args = dryrun.entry("cuda")
+    with torch.inference_mode():
+        _, x, latent, eos = fn(*args)
+    sync("cuda")
+    check(bool(torch.isfinite(x).all() and torch.isfinite(latent).all()), "mesh (e): entry")
+    print(f"mesh (e): dryrun_multichip(4, 'cuda') passed in {t_dry:.2f} s, launches {dry}; "
+          f"entry('cuda') frame step at B = {x.shape[0]}: x {tuple(x.shape)}, latent "
+          f"{tuple(latent.shape)}")
+
+    out = dict(gpus=n_gpu, names=names, first=first, whole=whole, rel=rel, b1=b1,
+               groups=groups, dry_launches=dry)
+    if measure:
+        # the 1-shard baseline is phase 8's path: its launches stay out of the mesh count
+        out["load"] = [serve_load(engine, 64, max_seconds=12.0, profile_steps=8, mesh=None),
+                       on_path(serve_load, engine, 64, max_seconds=12.0, profile_steps=8,
+                               mesh=mesh1)]
+        for r in out["load"]:
+            prof = r["profile"]
+            phases = {k: round(v, 3) for k, v in r["phase_ms_per_step"].items()}
+            print(f"mesh (f): 64 slots on {r['shards']} shard(s): {r['finished']} streams "
+                  f"finished in {r['wall_s']:.3f} s ({r['steps']} steps), "
+                  f"{r['audio_s_per_s']:.2f} audio s per wall s; {r['step_ms']:.3f} ms per step, "
+                  f"phases ms/step {phases}; "
+                  f"{prof['kernels_per_step']:.1f} device kernels and "
+                  f"{prof['device_us_per_step']:.1f} us device time per profiled step "
+                  f"(busy share {prof['busy_share']:.3f})")
+    out["launches"] = served
+    print(f"mesh: kernel launches on the mesh runs {served}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -806,6 +943,7 @@ def main() -> int:
     phase_build()
     results = phase_kernels()
     with tempfile.TemporaryDirectory(prefix="ptts_synth_") as tmp:
+        os.environ["PTTS_PROFILE_DIR"] = os.path.join(tmp, "profile")
         t0 = time.perf_counter()
         model_dir = synth.write_model_dir(tmp, seed=0)
         print(f"synthetic full-size checkpoint: {time.perf_counter() - t0:.2f} s")
@@ -815,16 +953,19 @@ def main() -> int:
         stream = phase_stream(ctx, cpu_ctx)
         cli_launches = phase_cli(model_dir, ctx)
         serve = phase_serve(ctx, cpu_ctx)
+        mesh = phase_mesh(ctx, serve["pool_a"])
         ctx.close()
         cpu_ctx.close()
     by_path = {name: {"slice": launches[name], "stream": stream["launches"][name],
-                      "cli": cli_launches[name], "serve": serve["launches"][name]}
+                      "cli": cli_launches[name], "serve": serve["launches"][name],
+                      "mesh": mesh["launches"][name]}
                for name in KERNELS}
     print(json.dumps({"stream": {k: stream[k] for k in ("ttfc_first_ms", "ttfc_warm_ms", "lsb",
                                                         "rates", "profile")}}))
     print(json.dumps({"serve": {k: serve[k] for k in ("lsb_a", "first_a", "rel_a", "lsb_b",
                                                       "first_b", "rel_b", "lsb_c", "equality_ms",
                                                       "http", "load", "launches")}}))
+    print(json.dumps({"mesh": mesh}))
 
     kernels = []
     for name, replaces in (("causal_attention_qkv", f"{PALLAS}:361"),

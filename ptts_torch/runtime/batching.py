@@ -1,5 +1,5 @@
 """Continuous batching: admit new utterances into freed KV slots (port of
-ptts_tpu/runtime/batching.py, one device).
+ptts_tpu/runtime/batching.py, on one device or a mesh of them).
 
 The serving loop keeps a fixed pool of B device-resident stream slots
 (FlowLM KV cache rows + streaming-Mimi state rows). Finished streams free
@@ -14,9 +14,21 @@ mid-flight gets start = cursor and its gap is masked. A recycled ring column
 always belongs to a finished stream, because per-request frames <=
 noise_budget <= ring width, so the pool never compacts.
 
-Shapes stay fixed: the pool is [B+1] rows, row B a trash slot that absorbs
-the padded entries of an admit group; every frame step runs the whole pool
-with done-masking.
+Shapes stay fixed and every frame step runs the whole pool with
+done-masking. The pool is split into SHARDS, one per mesh position (one
+shard on the engine's device without a mesh). A shard owns its device
+tensors (KV cache, Mimi state, per-slot tables and params, voice bank) and
+its own rows: u usable rows, then one trash row that absorbs the padded
+entries of the shard's admit groups. Global rows number the shards' rows in
+mesh position order (dcn-major), so host group h owns a contiguous block and
+every host-side mirror (slot_req, _done_np, params, ...) is one global
+row-indexed array; without a mesh the layout is the single-device one,
+rows [0, slots) then the trash row. Host group h's slots/H rows are spread
+as evenly as they go over its shards. JAX instead pads one block of rows
+per host group (B1 = H * rows, one trash row per group): GSPMD may move an
+admit group's padded entries to any row of the group, while here an admit
+group prefills on ONE device and writes only that shard's rows, so each
+shard needs its own trash row.
 
 Where the port differs from the JAX module, and why:
   * No donation: admission writes the admitted rows IN PLACE on the pool
@@ -33,7 +45,9 @@ Where the port differs from the JAX module, and why:
     server's serving thread and HTTP handler threads may call in.
   * Device noise (seed=-1) is drawn with a torch.Generator per request,
     seeded with its noise_seed: not the JAX threefry stream, same semantics.
-  * One device: a ``mesh`` is refused (multi-GPU serving is later work).
+  * A mesh is explicit (parallel/mesh.py): admission picks a shard and runs
+    there; a step launches every shard in turn, each on its own device's
+    current stream, starts every shard's readback, and only then waits.
 """
 
 from __future__ import annotations
@@ -54,6 +68,7 @@ from ptts_tpu.rng import frame_noise
 from ptts_tpu.text import estimate_frames, prepare_text
 
 from ..models import flowlm, mimi_stream
+from ..parallel import mesh as pmesh
 from .streaming import fused_stream_step, fused_stream_steps
 
 # shared zero-length chunk: device-bound collection appends one as a
@@ -92,9 +107,9 @@ class _PinnedPool:
 
 
 class _QueueView:
-    """Deque-like view of the admission queue(s). The port serves one
-    device, so there is one queue; the server drains and clears it through
-    this view as it does the JAX batcher's."""
+    """Deque-like view of the admission queues, one per host group; the
+    server drains and clears them through this view as it does the JAX
+    batcher's."""
 
     def __init__(self, qs: Sequence[deque]):
         self._qs = qs
@@ -352,8 +367,57 @@ def admit_slots_ids(w, cache: flowlm.KVCache, x_all, eos_step, done, frame_idx, 
     return slot_ids
 
 
+@dataclasses.dataclass(eq=False)
+class Shard:
+    """One mesh position's part of the slot pool, all on ``device``: local
+    row i is global row row0 + i; rows [0, n_slots) serve and local row
+    n_slots is the shard's trash row."""
+
+    index: int
+    host: int                    # host group (dcn index)
+    device: torch.device         # with an explicit index on CUDA
+    fw: Any
+    mw: Any
+    row0: int
+    n_slots: int
+    cache: flowlm.KVCache
+    x: torch.Tensor
+    eos_step: torch.Tensor
+    done: torch.Tensor
+    frame_idx: torch.Tensor
+    mimi_state: dict
+    time_embs: torch.Tensor      # [rows, S_max, flow_dim] f32
+    noise_tab: torch.Tensor      # [rows, F_max, latent]
+    cond_bank: torch.Tensor      # voice bank, shared by the shards of one device
+    cond_len: torch.Tensor
+    params_dev: tuple = ()
+    spec_mask: Optional[torch.Tensor] = None
+
+    @property
+    def rows(self) -> int:
+        return self.n_slots + 1
+
+    @property
+    def trash(self) -> int:
+        """The trash row, local index."""
+        return self.n_slots
+
+    @property
+    def slots(self) -> range:
+        """The usable rows, global indices."""
+        return range(self.row0, self.row0 + self.n_slots)
+
+
 class ContinuousBatcher:
-    """Fixed-slot continuous batching server for one device.
+    """Fixed-slot continuous batching server for one device or a mesh.
+
+    With ``mesh`` (parallel/mesh.make_mesh or make_multihost_mesh) the pool
+    is split into one shard per mesh position (see the module docstring);
+    the weights are replicated once per distinct device. Admission is PER
+    HOST GROUP along the ``dcn`` axis: each group has its own queue and
+    rows, ``submit(..., host=h)`` pins a request, and the default routes to
+    the group with the least backlog. An admit group fills the free rows of
+    one shard of its host group, the one with the most free rows.
 
     ``pipeline=True`` dispatches step N+1 before reading step N's chunks
     (the readback overlaps device work). Its outputs equal the serial
@@ -383,10 +447,6 @@ class ContinuousBatcher:
                  max_queue: int = 0,
                  spec_admit: bool = False,
                  pack_flags: Optional[bool] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ptts_torch's ContinuousBatcher serves one device; multi-GPU serving "
-                "(parallel/mesh.py) is ROADMAP queue A item 1")
         # max_queue bounds the admission queue (0 = unbounded): enqueue()
         # raises QueueFull past it, which the server answers with HTTP 429
         self.max_queue = int(max_queue)
@@ -420,11 +480,16 @@ class ContinuousBatcher:
         self.device = engine.device
         self._on_card = self.device.type == "cuda"
         self.slots = slots
-        self.n_hosts = 1
-        # rows [0, slots) serve; row `slots` is the trash row
-        self.B1 = slots + 1
-        self.trash = slots
-        self.slot_rows = np.arange(slots, dtype=np.int64)
+        self.n_hosts = pmesh.num_host_groups(mesh) if mesh is not None else 1
+        if slots % self.n_hosts:
+            raise ValueError(f"slots={slots} must divide evenly across {self.n_hosts} host groups")
+        if mesh is not None and slots < mesh.size:
+            # an empty shard would still run a full frame step every step
+            raise ValueError(f"slots={slots} would leave shards of the {mesh.size}-position "
+                             f"mesh without a slot")
+        if mesh is not None and any(d.type != self.device.type for d in mesh.device_list):
+            raise ValueError(f"the mesh's devices {mesh.device_list} are not of the engine's "
+                             f"device type ({self.device.type})")
         self.max_len = max_len
         self.admit_chunk = admit_chunk
         # frames per dispatch: K > 1 amortizes the per-step host work over
@@ -450,46 +515,31 @@ class ContinuousBatcher:
                 f"({max_len - prefix_budget} columns): a request could "
                 f"outlive its own KV columns; raise max_len")
 
-        dt = engine.dtype
-        dev = self.device
-        cfg = self.cfg
-        B1 = self.B1
-        # decode ring starts after the prefix region
-        cache = flowlm.make_cache(cfg, B1, max_len, dt, dev)
-        cache.start.fill_(prefix_budget)
-        self.cache = dataclasses.replace(cache, cursor=prefix_budget, t0=prefix_budget)
-        self.x = torch.zeros(B1, cfg.d_model, dtype=dt, device=dev)
-        self.eos_step = torch.full((B1,), -1, dtype=torch.int32, device=dev)
-        self.done = torch.ones(B1, dtype=torch.bool, device=dev)  # all slots start free
-        self.frame_idx = torch.zeros(B1, dtype=torch.int32, device=dev)
-        self.mimi_state = mimi_stream.init_state(engine.mw, engine.mimi_cfg, B1, dt)
-        # per-slot Euler time-embed tables [B1, S_max, flow_dim]: each slot
-        # carries its own num_steps grid (per-request Params)
-        self.time_embs = torch.zeros(B1, max_num_steps, cfg.flow_dim, dtype=torch.float32,
-                                     device=dev)
-        # per-slot noise tables [B1, F_max, latent], device-resident
-        self.noise_tab = torch.zeros(B1, self.noise_budget, cfg.latent_dim, dtype=dt, device=dev)
         self._te_cache: Dict[int, np.ndarray] = {}  # num_steps -> padded row
         self._pinned = _PinnedPool(self._on_card)
-
         # device voice-cond bank for the ids admission path: a voice's
-        # conditioning frames upload ONCE; each request ships token ids + a
-        # bank row index. Handler threads register voices while the serving
-        # thread admits, hence the lock.
+        # conditioning frames upload ONCE per device; each request ships
+        # token ids + a bank row index. Handler threads register voices
+        # while the serving thread admits, hence the lock.
         self.voice_cap = voice_cap
         self.cond_budget = cond_budget or max(prefix_budget - 2, 1)
         if self.cond_budget >= prefix_budget:
             raise ValueError(f"cond_budget {self.cond_budget} must be < prefix_budget "
                              f"{prefix_budget}")
-        self.cond_bank = torch.zeros(voice_cap, self.cond_budget, cfg.d_model, dtype=dt,
-                                     device=dev)
-        self.cond_len = torch.zeros(voice_cap, dtype=torch.int32, device=dev)
         self._voice_idx: Dict[str, int] = {}
         self._voice_lock = threading.Lock()
+        self.shards = self._make_shards(mesh)
+        B1 = self.B1 = sum(sh.rows for sh in self.shards)
+        self._host_slots = [[r for sh in self.shards if sh.host == h for r in sh.slots]
+                            for h in range(self.n_hosts)]
+        self._host_trash = [[sh.row0 + sh.trash for sh in self.shards if sh.host == h]
+                            for h in range(self.n_hosts)]
+        self._trash_rows = np.array([r for rows in self._host_trash for r in rows], np.int64)
+        self.slot_rows = np.array([r for rows in self._host_slots for r in rows], np.int64)
 
         # row-indexed; only rows in slot_rows ever hold a request
         self.slot_req: List[Optional[Request]] = [None] * B1
-        self.queues: List[deque] = [deque()]
+        self.queues: List[deque] = [deque() for _ in range(self.n_hosts)]
         self.queue = _QueueView(self.queues)
         self.chunks: Dict[int, List[np.ndarray]] = {}
         self.finished: Dict[int, Result] = {}
@@ -524,34 +574,81 @@ class ContinuousBatcher:
         self._slot_nframes = np.zeros(B1, np.int64)  # device-bound count
         self.pipeline = pipeline
         # spec_admit receipts, FIFO: ((host rows, event), [requests in group
-        # order], tag), tag = the seq of the first step dispatched AFTER the
-        # admit; _collect resolves every receipt with tag <= the step it
-        # collects, so the host mirrors install exactly between the last
-        # pre-admit step and the first post-admit step
+        # order], tag, shard), tag = the seq of the first step dispatched
+        # AFTER the admit; _collect resolves every receipt with tag <= the
+        # step it collects, so the host mirrors install exactly between the
+        # last pre-admit step and the first post-admit step
+        if self.spec_admit and self.n_hosts > 1:
+            raise api.PttsError(
+                "spec_admit requires a single host group (device row "
+                "selection has no per-group queue affinity)")
         self._receipts: List[tuple] = []
         self._spec_inflight = 0        # receipt requests not yet resolved
         self._spec_cancelled: set = set()
         self._finish_ema = 0.0         # finishes per collected step (EMA)
-        if self.spec_admit:
-            mask = np.zeros(B1, bool)
-            mask[self.slot_rows] = True
-            self._spec_mask = torch.from_numpy(mask).to(dev)
 
     # -- device placement ------------------------------------------------------
 
+    def _make_shards(self, mesh) -> List[Shard]:
+        """One Shard per mesh position (one on the engine's device without a
+        mesh), each with its pool tensors on its own device."""
+        engine, cfg, dt = self.engine, self.cfg, self.engine.dtype
+        if mesh is None:
+            dev = next(engine.fw.buffers()).device  # indexed, unlike engine.device
+            devices, fws, mws = [dev], {dev: engine.fw}, {dev: engine.mw}
+        else:
+            devices = mesh.device_list
+            fws, mws = pmesh.shard_weights(mesh, engine.fw), pmesh.shard_weights(mesh, engine.mw)
+        per_host = len(devices) // self.n_hosts
+        u = self.slots // self.n_hosts
+        banks = {d: (torch.zeros(self.voice_cap, self.cond_budget, cfg.d_model, dtype=dt,
+                                 device=d),
+                     torch.zeros(self.voice_cap, dtype=torch.int32, device=d))
+                 for d in dict.fromkeys(devices)}
+        shards, row0 = [], 0
+        for i, dev in enumerate(devices):
+            host, p = divmod(i, per_host)
+            n = u // per_host + (p < u % per_host)
+            rows = n + 1
+            # decode ring starts after the prefix region
+            cache = flowlm.make_cache(cfg, rows, self.max_len, dt, dev)
+            cache.start.fill_(self.prefix_budget)
+            sh = Shard(
+                index=i, host=host, device=dev, fw=fws[dev], mw=mws[dev], row0=row0, n_slots=n,
+                cache=dataclasses.replace(cache, cursor=self.prefix_budget, t0=self.prefix_budget),
+                x=torch.zeros(rows, cfg.d_model, dtype=dt, device=dev),
+                eos_step=torch.full((rows,), -1, dtype=torch.int32, device=dev),
+                done=torch.ones(rows, dtype=torch.bool, device=dev),  # all slots start free
+                frame_idx=torch.zeros(rows, dtype=torch.int32, device=dev),
+                mimi_state=mimi_stream.init_state(mws[dev], engine.mimi_cfg, rows, dt),
+                # per-slot Euler tables: each slot carries its own num_steps grid
+                time_embs=torch.zeros(rows, self.max_num_steps, cfg.flow_dim,
+                                      dtype=torch.float32, device=dev),
+                noise_tab=torch.zeros(rows, self.noise_budget, cfg.latent_dim, dtype=dt,
+                                      device=dev),
+                cond_bank=banks[dev][0], cond_len=banks[dev][1])
+            if self.spec_admit:
+                sh.spec_mask = torch.arange(rows, device=dev) < n
+            shards.append(sh)
+            row0 += rows
+        return shards
+
     def _refresh_params_dev(self) -> None:
         """Full upload of the per-slot generation params (construction)."""
-        self._params_dev = tuple(
-            torch.from_numpy(a.copy()).to(self.device)
-            for a in (self._eos_threshold, self._eos_min_frames, self._eos_after,
-                      self._max_frames, self._num_steps))
+        for sh in self.shards:
+            sl = slice(sh.row0, sh.row0 + sh.rows)
+            sh.params_dev = tuple(
+                torch.from_numpy(a[sl].copy()).to(sh.device)
+                for a in (self._eos_threshold, self._eos_min_frames, self._eos_after,
+                          self._max_frames, self._num_steps))
 
-    def _upload(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    def _upload(self, arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
         """An admit group's small host arrays (float32 or int32) -> device
         tensors of the same shapes, through ONE staging buffer and one
-        non-blocking copy. On the card the buffer is pinned and goes back to
-        the pool with the copy's event; a pageable upload would first wait
-        for every frame in flight."""
+        non-blocking copy to ``device`` (the current device). On the card
+        the buffer is pinned and goes back to the pool with the copy's
+        event; a pageable upload would first wait for every frame in
+        flight."""
         total = sum(a.size for a in arrays.values())
         host = (self._pinned.get((total,), torch.float32) if self._on_card
                 else torch.empty(total, dtype=torch.float32))
@@ -567,7 +664,7 @@ class ContinuousBatcher:
                 raise TypeError(f"admission array {name!r} is {a.dtype}, not float32/int32")
             off += a.size
         if self._on_card:
-            dev = host.to(self.device, non_blocking=True)
+            dev = host.to(device, non_blocking=True)
             ready = torch.cuda.Event()
             ready.record()
             self._pinned.put(host, ready)
@@ -621,8 +718,10 @@ class ContinuousBatcher:
             if n:
                 row = np.zeros((self.cond_budget, self.cfg.d_model), np.float32)
                 row[:n] = cond
-                self.cond_bank[idx].copy_(torch.from_numpy(row))
-            self.cond_len[idx] = n
+            for sh in {id(sh.cond_bank): sh for sh in self.shards}.values():  # one per device
+                if n:
+                    sh.cond_bank[idx].copy_(torch.from_numpy(row))
+                sh.cond_len[idx] = n
             self._voice_idx[name] = idx
             return idx
 
@@ -695,12 +794,29 @@ class ContinuousBatcher:
             voice_idx=vidx,
         )
 
-    def enqueue(self, req: Request) -> int:
+    def _route_host(self) -> int:
+        """The host group with the least backlog (queued minus free rows);
+        ties go to the lowest index."""
+        if self.n_hosts == 1:
+            return 0
+
+        def backlog(h: int) -> int:
+            free = sum(1 for s in self._host_slots[h] if self.slot_req[s] is None)
+            return len(self.queues[h]) - free
+
+        return min(range(self.n_hosts), key=lambda h: (backlog(h), h))
+
+    def enqueue(self, req: Request, host: Optional[int] = None) -> int:
         """Queue a prepared Request for admission (cheap; lock-holding ok).
+
+        ``host`` pins the request to one host group's rows (multi-host
+        mesh); the default routes it with _route_host.
 
         The ring-safety invariant is checked HERE too, not only in
         prepare(): a directly enqueued over-budget request would otherwise
         recycle live decode-ring columns mid-stream."""
+        if host is not None and not 0 <= host < self.n_hosts:
+            raise ValueError(f"host {host} is not one of the pool's {self.n_hosts} host groups")
         if req.max_frames > self.noise_budget:
             raise api.PttsError(
                 f"request rid={req.rid} needs {req.max_frames} frames > pool "
@@ -716,7 +832,7 @@ class ContinuousBatcher:
                 f"max_num_steps {self.max_num_steps}")
         if self.max_queue and len(self.queue) >= self.max_queue:
             raise QueueFull(f"admission queue full ({self.max_queue} requests); retry later")
-        self.queues[0].append(req)
+        self.queues[self._route_host() if host is None else host].append(req)
         self.chunks[req.rid] = []
         return req.rid
 
@@ -776,8 +892,8 @@ class ContinuousBatcher:
             time.sleep(0.0005)
 
     def submit(self, text: str, voice: Optional[str] = None,
-               params: Optional[api.Params] = None) -> int:
-        return self.enqueue(self.prepare(text, voice=voice, params=params))
+               params: Optional[api.Params] = None, host: Optional[int] = None) -> int:
+        return self.enqueue(self.prepare(text, voice=voice, params=params), host=host)
 
     @torch.inference_mode()
     def _te_row(self, num_steps: int) -> np.ndarray:
@@ -795,7 +911,9 @@ class ContinuousBatcher:
 
     @torch.inference_mode()
     def _admit(self) -> int:
-        """Admit queued requests into free slots, admit_chunk at a time.
+        """Admit queued requests into free slots, admit_chunk at a time, host
+        group by host group; each group fills the free rows of the host
+        group's shard with the most free rows (ties: the lowest index).
         Returns how many were admitted (step() splits the next dispatch
         when fresh streams are aboard -- see split_admit). No host wait:
         the frame step is ordered after the admission on the stream."""
@@ -803,34 +921,42 @@ class ContinuousBatcher:
             return self._admit_spec()
         admitted = 0
         work = 0.0  # admission work, for phase_s
-        q = self.queues[0]
-        if q:
-            free = [s for s in range(self.slots) if self.slot_req[s] is None]
-            while free and q:
+        for h, q in enumerate(self.queues):
+            if not q:
+                continue
+            free = {sh.index: [s for s in sh.slots if self.slot_req[s] is None]
+                    for sh in self.shards if sh.host == h}
+            while q:
+                sh = self.shards[max(free, key=lambda i: (len(free[i]), -i))]
+                rows = free[sh.index]
+                if not rows:
+                    break
                 group: List[Tuple[int, Request]] = []
-                while free and q and len(group) < self.admit_chunk:
-                    group.append((free.pop(0), q.popleft()))
+                while rows and q and len(group) < self.admit_chunk:
+                    group.append((rows.pop(0), q.popleft()))
                 tg = time.perf_counter()
-                self._admit_group(group)
+                self._admit_group(group, sh)
                 work += time.perf_counter() - tg
                 admitted += len(group)
         self._admit_work += work
         return admitted
 
-    def _admit_group(self, group: List[Tuple[Optional[int], Request]],
+    def _admit_group(self, group: List[Tuple[Optional[int], Request]], shard: Shard,
                      spec: bool = False) -> None:
-        """Admit one group. If the admission raises, the group's requests
-        that it left in neither a slot nor a receipt go back to the front
-        of the queue before the error propagates, so the caller (the
-        server's _on_step_error) can fail them instead of losing them."""
+        """Admit one group into ``shard``, on its device. If the admission
+        raises, the group's requests that it left in neither a slot nor a
+        receipt go back to the front of their queue before the error
+        propagates, so the caller (the server's _on_step_error) can fail
+        them instead of losing them."""
         try:
-            self._admit_variants(group, spec)
+            with pmesh.on_device(shard.device):
+                self._admit_variants(group, shard, spec)
         except BaseException:
             held = {id(r) for r in self.slot_req if r is not None}
             held.update(id(r) for rec in self._receipts for r in rec[1])
             for _, req in reversed(group):
                 if id(req) not in held:
-                    self.queues[0].appendleft(req)
+                    self.queues[shard.host].appendleft(req)
             raise
 
     def _admit_spec(self) -> int:
@@ -839,28 +965,35 @@ class ContinuousBatcher:
         the recent finish rate -- that overshoot lets rows freed in the
         still-uncollected window refill for the next window. Overshoot that
         finds no free row lands in the trash row and is re-queued when the
-        receipt resolves."""
+        receipt resolves. Each group goes to the shard with the most known
+        free rows not yet claimed by an unresolved receipt."""
         q = self.queues[0]
         if not q:
             return 0
-        known_free = sum(1 for s in range(self.slots) if self.slot_req[s] is None)
-        budget = known_free - self._spec_inflight + int(np.ceil(self._finish_ema * 1.5))
+        free = {sh.index: sum(1 for s in sh.slots if self.slot_req[s] is None)
+                for sh in self.shards}
+        for rec in self._receipts:
+            free[rec[3].index] -= len(rec[1])
+        budget = sum(free.values()) + int(np.ceil(self._finish_ema * 1.5))
         budget = min(budget, len(q))
         admitted = 0
         work = 0.0
         while budget > 0 and q:
             take = min(self.admit_chunk, budget, len(q))
+            sh = self.shards[max(free, key=lambda i: (free[i], -i))]
             group = [(None, q.popleft()) for _ in range(take)]
             tg = time.perf_counter()
-            self._admit_group(group, spec=True)
+            self._admit_group(group, sh, spec=True)
             work += time.perf_counter() - tg
             self._spec_inflight += take
+            free[sh.index] -= take
             admitted += take
             budget -= take
         self._admit_work += work
         return admitted
 
-    def _admit_variants(self, group: List[Tuple[Optional[int], Request]], spec: bool) -> None:
+    def _admit_variants(self, group: List[Tuple[Optional[int], Request]], shard: Shard,
+                        spec: bool) -> None:
         # one admission per variant present: (prompt as ids vs host prefix)
         # x (noise drawn on the device vs host parity rows). Serving traffic
         # is uniform (seed=-1 ids requests); host-noise rows are for parity
@@ -871,16 +1004,17 @@ class ContinuousBatcher:
                 if not sub:
                     continue
                 if by_ids:
-                    self._admit_group_ids(sub, dev_noise, spec)
+                    self._admit_group_ids(sub, shard, dev_noise, spec)
                 else:
-                    self._admit_group_prefix(sub, dev_noise, spec)
+                    self._admit_group_prefix(sub, shard, dev_noise, spec)
 
-    def _admit_bookkeep(self, group, dev_noise: bool):
+    def _admit_bookkeep(self, group, shard: Shard, dev_noise: bool):
         """Shared per-group host bookkeeping; returns the padded admission
-        arrays every path uploads (slots, Euler tables, noise, params) and
-        the device-noise seeds (a host list; None on the host-noise path)."""
+        arrays every path uploads (the shard's local rows, Euler tables,
+        noise, params) and the device-noise seeds (a host list; None on the
+        host-noise path)."""
         n = self.admit_chunk
-        slot_ids = np.full(n, self.trash, np.int32)
+        slot_ids = np.full(n, shard.trash, np.int32)
         te_rows = np.zeros((n, self.max_num_steps, self.cfg.flow_dim), np.float32)
         seeds = None
         if dev_noise:
@@ -908,7 +1042,7 @@ class ContinuousBatcher:
                                 req.max_frames, req.num_steps)
             if slot is None:  # spec_admit: the device picks the row; host
                 continue      # mirrors install at receipt-resolve time
-            slot_ids[j] = slot
+            slot_ids[j] = slot - shard.row0
             self._install_slot(slot, req, self._seq)
         self.n_admit_groups += 1
         return dict(slot_ids=slot_ids, te_rows=te_rows, new_params=new_params, **noise), seeds
@@ -926,7 +1060,7 @@ class ContinuousBatcher:
         self._admit_seq[slot] = admit_seq
         self._slot_nframes[slot] = 0
 
-    def _admit_kwargs(self, up: Dict[str, torch.Tensor], seeds, n_valid: int,
+    def _admit_kwargs(self, up: Dict[str, torch.Tensor], seeds, n_valid: int, shard: Shard,
                       spec: bool) -> Dict[str, Any]:
         """The admit function's noise-variant and spec_select arguments."""
         if seeds is None:
@@ -935,36 +1069,38 @@ class ContinuousBatcher:
             kw = {"noise_rows": None, "noise_seed": seeds, "noise_meta": up["noise_meta"],
                   "device_noise": True}
         if spec:
-            kw.update(spec_select=True, n_valid=n_valid, slot_mask=self._spec_mask,
-                      trash_row=self.trash)
+            kw.update(spec_select=True, n_valid=n_valid, slot_mask=shard.spec_mask,
+                      trash_row=shard.trash)
         return kw
 
-    def _push_receipt(self, rows_dev: torch.Tensor, group) -> None:
-        """Record a speculative admission's device-chosen rows for later
-        resolution (tag = the seq of the first step dispatched after it)."""
-        self._receipts.append((self._readback(rows_dev), [req for _, req in group], self._seq))
+    def _push_receipt(self, rows_dev: torch.Tensor, group, shard: Shard) -> None:
+        """Record a speculative admission's device-chosen rows (local to
+        ``shard``) for later resolution (tag = the seq of the first step
+        dispatched after it)."""
+        self._receipts.append((self._readback(rows_dev), [req for _, req in group], self._seq,
+                               shard))
 
-    def _admit_group_prefix(self, group, dev_noise: bool, spec: bool) -> None:
+    def _admit_group_prefix(self, group, shard: Shard, dev_noise: bool, spec: bool) -> None:
         n = self.admit_chunk
-        arrays, seeds = self._admit_bookkeep(group, dev_noise)
+        arrays, seeds = self._admit_bookkeep(group, shard, dev_noise)
         prefix = np.zeros((n, self.prefix_budget, self.cfg.d_model), np.float32)
         lengths = np.ones(n, np.int32)
         for j, (_, req) in enumerate(group):
             prefix[j, : len(req.prefix)] = req.prefix
             lengths[j] = len(req.prefix)
-        up = self._upload(dict(arrays, prefix=prefix, lengths=lengths))
+        up = self._upload(dict(arrays, prefix=prefix, lengths=lengths), shard.device)
         rows = admit_slots(
-            self.engine.fw, self.cache, self.x, self.eos_step, self.done, self.frame_idx,
-            self.mimi_state, self.time_embs, self.noise_tab, self._params_dev,
+            shard.fw, shard.cache, shard.x, shard.eos_step, shard.done, shard.frame_idx,
+            shard.mimi_state, shard.time_embs, shard.noise_tab, shard.params_dev,
             up["slot_ids"], up["prefix"].to(self.engine.dtype), up["lengths"], up["te_rows"],
             new_params=up["new_params"], cfg=self.cfg,
-            **self._admit_kwargs(up, seeds, len(group), spec))
+            **self._admit_kwargs(up, seeds, len(group), shard, spec))
         if spec:
-            self._push_receipt(rows, group)
+            self._push_receipt(rows, group, shard)
 
-    def _admit_group_ids(self, group, dev_noise: bool, spec: bool) -> None:
+    def _admit_group_ids(self, group, shard: Shard, dev_noise: bool, spec: bool) -> None:
         n = self.admit_chunk
-        arrays, seeds = self._admit_bookkeep(group, dev_noise)
+        arrays, seeds = self._admit_bookkeep(group, shard, dev_noise)
         ids = np.zeros((n, self.prefix_budget), np.int32)
         n_tokens = np.zeros(n, np.int32)
         cond_idx = np.zeros(n, np.int32)
@@ -972,16 +1108,17 @@ class ContinuousBatcher:
             ids[j, : len(req.ids)] = req.ids
             n_tokens[j] = len(req.ids)
             cond_idx[j] = req.voice_idx
-        up = self._upload(dict(arrays, ids=ids, n_tokens=n_tokens, cond_idx=cond_idx))
+        up = self._upload(dict(arrays, ids=ids, n_tokens=n_tokens, cond_idx=cond_idx),
+                          shard.device)
         rows = admit_slots_ids(
-            self.engine.fw, self.cache, self.x, self.eos_step, self.done, self.frame_idx,
-            self.mimi_state, self.time_embs, self.noise_tab, self._params_dev,
-            up["slot_ids"], up["ids"], up["n_tokens"], up["cond_idx"], self.cond_bank,
-            self.cond_len, up["te_rows"], new_params=up["new_params"],
+            shard.fw, shard.cache, shard.x, shard.eos_step, shard.done, shard.frame_idx,
+            shard.mimi_state, shard.time_embs, shard.noise_tab, shard.params_dev,
+            up["slot_ids"], up["ids"], up["n_tokens"], up["cond_idx"], shard.cond_bank,
+            shard.cond_len, up["te_rows"], new_params=up["new_params"],
             prefix_budget=self.prefix_budget, cfg=self.cfg,
-            **self._admit_kwargs(up, seeds, len(group), spec))
+            **self._admit_kwargs(up, seeds, len(group), shard, spec))
         if spec:
-            self._push_receipt(rows, group)
+            self._push_receipt(rows, group, shard)
 
     # -- double-buffered frame machinery --------------------------------------
     #
@@ -992,39 +1129,55 @@ class ContinuousBatcher:
 
     @torch.inference_mode()
     def _dispatch(self, k: Optional[int] = None) -> None:
-        """Launch one k-frame pool step; start its readback. ``k`` defaults
-        to the pool cadence (frames_per_step)."""
-        engine = self.engine
-        was_done_dev = self.done  # the device's pre-step done: exact routing
-        # per-slot params written at admission; "EOS disabled" is 1e30
-        eos_threshold, eos_min_frames, eos_after, max_frames, num_steps = self._params_dev
+        """Launch one k-frame pool step on every shard, each on its own
+        device's current stream, and start every shard's readback; nothing
+        here waits. ``k`` defaults to the pool cadence (frames_per_step)."""
         if k is None:
             k = self.frames_per_step
+        rbs = []
+        for sh in self.shards:
+            with pmesh.on_device(sh.device):
+                rbs.append(self._dispatch_shard(sh, k))
+        self._pending.append((rbs, self._seq))
+        self._seq += 1
+
+    def _dispatch_shard(self, sh: Shard, k: int) -> tuple:
+        """One shard's k-frame step and its readback (buffers, event)."""
+        mcfg = self.engine.mimi_cfg
+        was_done_dev = sh.done  # the device's pre-step done: exact routing
+        # per-slot params written at admission; "EOS disabled" is 1e30
+        eos_threshold, eos_min_frames, eos_after, max_frames, num_steps = sh.params_dev
         if k == 1:
-            (self.cache, self.mimi_state, self.x, pcm, _, self.eos_step,
-             self.done) = fused_stream_step(
-                engine.fw, engine.mw, self.cache, self.mimi_state, self.x, self.noise_tab,
-                self.time_embs, self.frame_idx, self.eos_step, self.done, self.cfg,
-                engine.mimi_cfg, True, eos_threshold, eos_min_frames, eos_after, max_frames,
-                num_steps, emit_i16=True, pack_flags=self.pack_flags)
-            self.frame_idx = self.frame_idx + 1
+            (sh.cache, sh.mimi_state, sh.x, pcm, _, sh.eos_step, sh.done) = fused_stream_step(
+                sh.fw, sh.mw, sh.cache, sh.mimi_state, sh.x, sh.noise_tab, sh.time_embs,
+                sh.frame_idx, sh.eos_step, sh.done, self.cfg, mcfg, True, eos_threshold,
+                eos_min_frames, eos_after, max_frames, num_steps, emit_i16=True,
+                pack_flags=self.pack_flags)
+            sh.frame_idx = sh.frame_idx + 1
             wd = was_done_dev  # [B]: a chunk is live iff not done pre-step
         else:
-            (self.cache, self.mimi_state, self.x, pcm, _, self.eos_step, self.done, wd,
-             self.frame_idx) = fused_stream_steps(
-                engine.fw, engine.mw, self.cache, self.mimi_state, self.x, self.noise_tab,
-                self.time_embs, self.frame_idx, self.eos_step, self.done, self.cfg,
-                engine.mimi_cfg, True, eos_threshold, eos_min_frames, eos_after, max_frames,
-                num_steps, k=k, emit_i16=True, pack_flags=self.pack_flags)
+            (sh.cache, sh.mimi_state, sh.x, pcm, _, sh.eos_step, sh.done, wd,
+             sh.frame_idx) = fused_stream_steps(
+                sh.fw, sh.mw, sh.cache, sh.mimi_state, sh.x, sh.noise_tab, sh.time_embs,
+                sh.frame_idx, sh.eos_step, sh.done, self.cfg, mcfg, True, eos_threshold,
+                eos_min_frames, eos_after, max_frames, num_steps, k=k, emit_i16=True,
+                pack_flags=self.pack_flags)
             # pcm [k, B, S(+2)]; wd [k, B] per-frame pre-step done
         if not self.collect_pcm:
-            rb = self._readback(_combine_flags(wd, self.done))
-        elif self.pack_flags:
-            rb = self._readback(pcm)
-        else:
-            rb = self._readback(pcm, self.done, wd)
-        self._pending.append(rb + (self._seq,))
-        self._seq += 1
+            return self._readback(_combine_flags(wd, sh.done))
+        if self.pack_flags:
+            return self._readback(pcm)
+        return self._readback(pcm, sh.done, wd)
+
+    def _read_step(self, rbs) -> List[np.ndarray]:
+        """Wait for one step's readbacks, shard by shard; the host arrays
+        with the shards' rows joined in global row order (rows are the last
+        axis of a bool flag array, the second last of an int16 PCM one)."""
+        parts = [self._read(bufs, ready) for bufs, ready in rbs]
+        if len(parts) == 1:
+            return parts[0]
+        return [np.concatenate(xs, axis=-1 if xs[0].dtype == np.bool_ else -2)
+                for xs in zip(*parts)]
 
     def _dispatch_step(self, fresh: int) -> None:
         """Dispatch one pool step of frames_per_step frames -- as one
@@ -1045,7 +1198,7 @@ class ContinuousBatcher:
         ran before the admit, before collecting the first step after it.
         Requests the device put in the trash row (no free row when the
         admission ran) re-enter the FRONT of the queue."""
-        (bufs, ready), reqs, tag = rec
+        (bufs, ready), reqs, tag, shard = rec
         rows = self._read(bufs, ready)[0]
         requeue = []
         for j, req in enumerate(reqs):
@@ -1055,25 +1208,25 @@ class ContinuousBatcher:
                 # own max_frames unobserved (host keeps slot_req[row] None)
                 self._spec_cancelled.discard(req.rid)
                 continue
-            row = int(rows[j])
-            if row == self.trash:
+            row = int(rows[j])  # local to the shard
+            if row == shard.trash:
                 requeue.append(req)
             else:
-                self._install_slot(row, req, tag)
-        q = self.queues[0]
+                self._install_slot(shard.row0 + row, req, tag)
+        q = self.queues[shard.host]
         for req in reversed(requeue):
             q.appendleft(req)
 
     def _collect(self, pend) -> int:
         """Read an in-flight step's chunk(s); finalize finished requests."""
-        bufs, ready, seq = pend
+        rbs, seq = pend
         # speculative admits dispatched before this step: their rows are
         # live in this step's flags -- install them first
         while self._receipts and self._receipts[0][2] <= seq:
             self._resolve_receipt(self._receipts.pop(0))
         t = time.perf_counter
         t0 = t()
-        host = self._read(bufs, ready)
+        host = self._read_step(rbs)
         t_pcm = t()
         if not self.collect_pcm:
             # device-bound: one [k+1, B] flag readback; PCM stays on the device
@@ -1098,7 +1251,7 @@ class ContinuousBatcher:
         # (the step predates them); the trash row is never live on the host
         fresh = self._admit_seq > seq
         self._done_np = np.where(fresh, self._done_np, done_np)
-        self._done_np[self.trash] = True
+        self._done_np[self._trash_rows] = True
         if not self.collect_pcm:
             return self._collect_counts(done_np, was_done, fresh)
         n_pub = 0

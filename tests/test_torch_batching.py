@@ -268,7 +268,7 @@ def test_decode_ring_wraps_more_than_once(ctx):
     p = p_(14, 41)
     texts = ["hello world", "how low", "world world", "hello hello", "who who", "hi there"]
     rids, res = run_specs(b, [(t, p) for t in texts])
-    assert b.cache.cursor - b.prefix_budget > 2 * R
+    assert b.shards[0].cache.cursor - b.prefix_budget > 2 * R
     for rid, text in zip(rids, texts):
         assert res[rid].frames == 14
         assert max_lsb(res[rid].pcm_i16, offline_i16(ctx, text, p, rid)) <= 10, text
@@ -292,23 +292,24 @@ def test_admission_writes_in_place(ctx):
     """Admission writes the admitted rows of the existing pool tensors and
     leaves a running stream's rows alone."""
     b = pool(ctx)
+    sh = b.shards[0]  # no mesh: one shard, local rows = global rows
     r0 = b.submit("hello world", params=p_(6, 1))
     b.step()
     row0 = next(s for s in b.slot_rows if b.slot_req[s] is not None)
-    ptrs = [t.data_ptr() for t in (b.cache.k, b.cache.v, b.time_embs, b.noise_tab,
-                                   b.mimi_state["ring"]["kpos"])]
-    k_before = b.cache.k[:, row0].clone()
-    kpos_before = b.mimi_state["ring"]["kpos"][row0].clone()
+    ptrs = [t.data_ptr() for t in (sh.cache.k, sh.cache.v, sh.time_embs, sh.noise_tab,
+                                   sh.mimi_state["ring"]["kpos"])]
+    k_before = sh.cache.k[:, row0].clone()
+    kpos_before = sh.mimi_state["ring"]["kpos"][row0].clone()
     b.submit("how low", params=p_(2, 2))
     assert b._admit() == 1
-    assert ptrs == [t.data_ptr() for t in (b.cache.k, b.cache.v, b.time_embs, b.noise_tab,
-                                           b.mimi_state["ring"]["kpos"])]
-    assert torch.equal(b.cache.k[:, row0], k_before)
-    assert torch.equal(b.mimi_state["ring"]["kpos"][row0], kpos_before)
+    assert ptrs == [t.data_ptr() for t in (sh.cache.k, sh.cache.v, sh.time_embs, sh.noise_tab,
+                                           sh.mimi_state["ring"]["kpos"])]
+    assert torch.equal(sh.cache.k[:, row0], k_before)
+    assert torch.equal(sh.mimi_state["ring"]["kpos"][row0], kpos_before)
     row1 = next(s for s in b.slot_rows if s != row0)
-    assert int(b.cache.start[row1]) == b.cache.cursor
-    assert bool((b.mimi_state["ring"]["kpos"][row1] == -1).all())
-    assert not bool(b.done[row1]) and int(b.frame_idx[row1]) == 0
+    assert int(sh.cache.start[row1]) == sh.cache.cursor
+    assert bool((sh.mimi_state["ring"]["kpos"][row1] == -1).all())
+    assert not bool(sh.done[row1]) and int(sh.frame_idx[row1]) == 0
     assert r0 in b.drain()
 
 
@@ -369,9 +370,10 @@ def test_bf16_pool_stays_near_f32(ctx, monkeypatch):
     monkeypatch.setenv("PTTS_DTYPE", "bf16")
     b16 = ContinuousBatcher(TTSEngine(ctx), slots=2, max_len=96, admit_chunk=2,
                             prefix_budget=32)
-    assert b16.cache.k.dtype == b16.noise_tab.dtype == b16.cond_bank.dtype == torch.bfloat16
-    assert b16.mimi_state["ring"]["k"].dtype == torch.bfloat16
-    assert b16.time_embs.dtype == torch.float32
+    sh = b16.shards[0]
+    assert sh.cache.k.dtype == sh.noise_tab.dtype == sh.cond_bank.dtype == torch.bfloat16
+    assert sh.mimi_state["ring"]["k"].dtype == torch.bfloat16
+    assert sh.time_embs.dtype == torch.float32
     rids16, got = run_specs(b16, STAGGERED)
     rids32, want = run_specs(pool(ctx), STAGGERED)
     assert rids16 == rids32
@@ -379,11 +381,6 @@ def test_bf16_pool_stays_near_f32(ctx, monkeypatch):
         assert got[rid].frames == want[rid].frames
         g, w = got[rid].audio, want[rid].audio
         assert np.abs(g - w).max() <= 0.08 * np.abs(w).max()
-
-
-def test_mesh_is_refused(ctx):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pool(ctx, mesh=object())
 
 
 def test_num_steps_above_pool_cap_rejected(ctx):
@@ -572,7 +569,7 @@ def test_device_noise_roundtrip_matches_host_path(ctx):
     rid = b.enqueue(req)
     b.step()
     slot = next(s for s in b.slot_rows if b.slot_req[s] is not None and b.slot_req[s].rid == rid)
-    noise = b.noise_tab[slot, :4].float().numpy().copy()
+    noise = b.shards[0].noise_tab[slot, :4].float().numpy().copy()
     assert np.abs(noise).max() > 0
     res = b.drain()[rid]
     assert res.frames == 4

@@ -190,3 +190,71 @@ def test_full_width_batcher_on_card_matches_cpu(dev, tmp_path):
             assert (np.abs(c) == 32767).any(), f"rid {rid}: {lsb} LSB with no clipping"
             assert rel(torch.from_numpy(g / np.float32(32767.0)),
                        torch.from_numpy(c / np.float32(32767.0))) <= 1e-3
+
+
+def card_mesh(pmesh):
+    """A 2-host mesh over the first 4 (or 2) visible GPUs, else 2 host
+    groups x 2 shards all on cuda:0 (the pool's 4 slots fill at most 4
+    positions)."""
+    n = torch.cuda.device_count()
+    devs = [f"cuda:{i}" for i in range(4 if n >= 4 else 2)] if n >= 2 else ["cuda:0"] * 4
+    return pmesh.make_multihost_mesh(2, devs)
+
+
+def test_sharded_batcher_on_card_matches_unsharded(dev, tmp_path):
+    """The batcher's pool sharded over a 2-host mesh on the card (B1 in
+    every admit group of every shard) against the unsharded pool: frames
+    equal, int16 within 4 LSB (sub-pools run their GEMMs at other batch
+    sizes); every shard's tensors on its device; a second drain at the same
+    shapes builds no new RoPE table on any device."""
+    from ptts_torch.ops import rope
+    from ptts_torch.parallel import mesh as pmesh
+    from ptts_torch.runtime.batching import ContinuousBatcher
+
+    fc = FlowLMConfig(vocab=60, text_dim=128, d_model=128, num_heads=2, head_dim=64,
+                      num_layers=2, hidden=256, latent_dim=8, flow_dim=32, flow_depth=2,
+                      time_freqs=8)
+    mc = MimiConfig(latent_dim=8, d_model=128, num_heads=2, head_dim=64, num_layers=1,
+                    hidden=256, n_filters=4, ratios=(3, 2))
+    path = synth.write_model_dir(str(tmp_path), fc, mc, seed=2, scale=0.1)
+    engine = api.load_dir(path, flowlm_cfg=fc, mimi_cfg=mc, device="cuda").engine
+    texts = ["Hello world!", "A second, longer stream of text.", "Third.", "Four.", "Five!"]
+    frames = (3, 6, 4, 5, 2)
+    mesh = card_mesh(pmesh)
+
+    def run(m):
+        b = ContinuousBatcher(engine, slots=4, admit_chunk=2, prefix_budget=64, max_len=96,
+                              mesh=m)
+        rids = [b.submit(t, params=api.Params(seed=3, num_frames=f, eos_enabled=False))
+                for t, f in zip(texts, frames)]
+        return rids, b.drain(), b
+
+    rids_u, res_u, _ = run(None)
+    before = fa.causal_attention_qkv.launches
+    rids, res, b = run(mesh)
+    assert fa.causal_attention_qkv.launches - before == fc.num_layers * b.n_admit_groups
+    assert [sh.device for sh in b.shards] == mesh.device_list
+    for sh in b.shards:
+        assert all(t.device == sh.device for t in (sh.cache.k, sh.x, sh.done, sh.noise_tab,
+                                                   sh.cond_bank, *sh.params_dev))
+    assert rids == rids_u
+    for rid, f in zip(rids, frames):
+        g, u = res[rid].pcm_i16, res_u[rid].pcm_i16
+        assert res[rid].frames == res_u[rid].frames == f and g.shape == u.shape
+        assert int(np.abs(g.astype(np.int32) - u.astype(np.int32)).max()) <= 4, rid
+    misses = (fa._rope_tables.cache_info().misses, rope._device_freqs.cache_info().misses)
+    run(mesh)
+    assert (fa._rope_tables.cache_info().misses,
+            rope._device_freqs.cache_info().misses) == misses
+
+
+def test_dryrun_multichip_on_card(dev):
+    """The sharded offline pipeline, the 2-host sharded batcher and
+    spec_admit over 4 positions (distinct GPUs when 4 are visible, else
+    cuda:0 repeated), with both kernels launched."""
+    from ptts_torch import dryrun
+
+    before = (fa.causal_attention_qkv.launches, fa.window_attention_qkv.launches)
+    dryrun.dryrun_multichip(4, "cuda")
+    assert fa.causal_attention_qkv.launches > before[0]
+    assert fa.window_attention_qkv.launches > before[1]

@@ -461,7 +461,7 @@ def test_voice_registered_from_handler_while_loop_steps(fresh):
     status, _, body = post(h, dict(REQ, voice="bob", num_frames=3))
     assert status == 200, body
     assert b._voice_idx == {"alba": 0, "bob": 1}
-    assert int(b.cond_len[1]) == 2
+    assert int(b.shards[0].cond_len[1]) == 2
     want = offline_i16(service.ctx, "hello world", voice="bob", num_frames=3, num_steps=1,
                        seed=5 + 1, temp=0.5, eos_enabled=False)  # rid 1
     assert max_lsb(parse_wav(body), want) <= 8
