@@ -21,10 +21,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ptts_tpu.io.wav import Audio, save_wav
-from ptts_tpu.text import estimate_frames, prepare_text
-
 from . import api
+from .io.wav import Audio, save_wav
+from .text import estimate_frames, prepare_text
 
 QUIET, NORMAL, VERBOSE = 0, 1, 2
 

@@ -20,8 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ptts_tpu.config import FlowLMConfig, MimiConfig
-
+from .config import FlowLMConfig, MimiConfig
 from .ops.rope import permute_qk_rows_for_rope
 
 

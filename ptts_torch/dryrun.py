@@ -25,9 +25,8 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ptts_tpu.config import FlowLMConfig, MimiConfig
-
 from . import convert, synth
+from .config import FlowLMConfig, MimiConfig
 from .models import flowlm, mimi
 from .ops.norms import layernorm
 from .parallel import mesh as pmesh
@@ -41,7 +40,7 @@ DRY_MIMI = MimiConfig(latent_dim=8, d_model=128, num_heads=2, head_dim=64, num_l
 
 
 class _Tensors:
-    """The lookup interface of ptts_tpu.io.safetensors.SafetensorsFile
+    """The lookup interface of io.safetensors.SafetensorsFile
     (find, tensors, get_f32) over an in-memory dict of arrays."""
 
     def __init__(self, arrays: Dict[str, np.ndarray]):

@@ -21,8 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ptts_tpu.config import FlowLMConfig
-
+from ..config import FlowLMConfig
 from ..ops.activations import gelu_erf, silu
 from ..ops.attention import decode_attention_masked
 from ..ops.cuda.fused_attention import causal_attention_qkv

@@ -16,8 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ptts_tpu.config import MimiConfig
-
+from ..config import MimiConfig
 from ..ops.activations import gelu_tanh
 from ..ops.conv import (conv1d_causal, convtr1d_2s, elu, prepare_conv_kernel,
                         prepare_convtr_halves)

@@ -23,8 +23,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from ptts_tpu.config import MimiConfig
-
+from ..config import MimiConfig
 from ..ops.activations import gelu_tanh
 from ..ops.attention import _masked_softmax, _scale
 from ..ops.conv import conv1d_causal, convtr1d_2s, elu

@@ -12,11 +12,13 @@ Both take the projection in the halves RoPE layout
 (ops/rope.permute_qk_rows_for_rope) and rotate q and k at positions 0..T-1.
 A wrapper given a CPU tensor computes the plain version; given a CUDA tensor
 it launches its kernel or raises -- there is no fallback from one to the
-other. Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+other. Each wrapper counts its kernel launches in ``<wrapper>.launches``
+and, per (dtype, B, T), in the Counter ``<wrapper>.shapes``.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 
 import numpy as np
@@ -88,6 +90,10 @@ def _check_qkv(qkv: torch.Tensor, num_heads: int, head_dim: int) -> None:
         raise ValueError("qkv must be contiguous")
 
 
+def _tag(dtype: torch.dtype) -> str:
+    return "bf16" if dtype == torch.bfloat16 else "f32"
+
+
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
         msg = build.library().ptts_error_string(rc).decode()
@@ -119,10 +125,12 @@ def causal_attention_qkv(qkv: torch.Tensor, lengths: torch.Tensor, *, num_heads:
             int(qkv.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "causal_attention_qkv")
     causal_attention_qkv.launches += 1
+    causal_attention_qkv.shapes[(_tag(qkv.dtype), B, T)] += 1
     return out, k_rot
 
 
 causal_attention_qkv.launches = 0
+causal_attention_qkv.shapes = collections.Counter()
 
 
 def window_attention_qkv(qkv: torch.Tensor, *, num_heads: int, head_dim: int,
@@ -145,7 +153,16 @@ def window_attention_qkv(qkv: torch.Tensor, *, num_heads: int, head_dim: int,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "window_attention_qkv")
     window_attention_qkv.launches += 1
+    window_attention_qkv.shapes[(_tag(qkv.dtype), B, T)] += 1
     return out
 
 
 window_attention_qkv.launches = 0
+window_attention_qkv.shapes = collections.Counter()
+
+
+def attribute_calls() -> int:
+    """How many times the kernel library has raised a kernel's dynamic
+    shared-memory limit in this process: once per kernel and device, so a
+    launch at a shape already seen adds nothing."""
+    return build.library().ptts_attr_calls()

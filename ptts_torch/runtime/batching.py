@@ -62,13 +62,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ptts_tpu import api
-from ptts_tpu.config import FlowLMConfig
-from ptts_tpu.rng import frame_noise
-from ptts_tpu.text import estimate_frames, prepare_text
-
+from .. import api
+from ..config import FlowLMConfig
 from ..models import flowlm, mimi_stream
 from ..parallel import mesh as pmesh
+from ..rng import frame_noise
+from ..text import estimate_frames, prepare_text
 from .streaming import fused_stream_step, fused_stream_steps
 
 # shared zero-length chunk: device-bound collection appends one as a
@@ -169,7 +168,7 @@ class Request:
     #                               None when (ids, voice_idx) carry the
     #                               prompt for device-side construction
     noise: Optional[np.ndarray]   # [max_frames, latent] host-drawn parity
-    #                               noise (ptts_tpu.rng.frame_noise), or None
+    #                               noise (rng.frame_noise), or None
     #                               to draw the table on the device at admission
     max_frames: int
     eos_after: int

@@ -5,7 +5,7 @@ Weights load from the safetensors mmap to the device once, at construction.
 Prompt assembly stays on the host in numpy; prefill, the per-frame loop and
 Mimi run on the engine's device. Shape bucketing (prefix length, frame
 count) is kept as in the JAX engine, so both packages compute on the same
-padded shapes and draw the same host noise (ptts_tpu.rng.frame_noise).
+padded shapes and draw the same host noise (rng.frame_noise).
 
 Unlike the JAX engine there is no degradation from a failing kernel to its
 plain version: on a CUDA device the kernels run or the call raises, and an
@@ -22,15 +22,13 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ptts_tpu import api
-from ptts_tpu.io.wav import Audio
-from ptts_tpu.rng import frame_noise
-from ptts_tpu.text import estimate_frames, prepare_text
-from ptts_tpu.utils.timing import GLOBAL_STATS, span
-
-from .. import convert
+from .. import api, convert
+from ..io.wav import Audio
 from ..models import flowlm, mimi
+from ..rng import frame_noise
+from ..text import estimate_frames, prepare_text
 from ..utils import sanitize
+from ..utils.timing import GLOBAL_STATS, span
 
 
 def _round_up(x: int, m: int) -> int:

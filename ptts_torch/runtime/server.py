@@ -44,9 +44,8 @@ from typing import Optional
 
 import numpy as np
 
-from ptts_tpu.io.wav import Audio, quantize_i16
-
 from .. import api
+from ..io.wav import Audio, quantize_i16
 from .batching import ContinuousBatcher, QueueFull
 
 

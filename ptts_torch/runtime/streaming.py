@@ -24,12 +24,11 @@ from typing import Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ptts_tpu import api
-from ptts_tpu.config import FlowLMConfig
-from ptts_tpu.rng import frame_noise
-from ptts_tpu.text import estimate_frames, prepare_text
-
+from .. import api
+from ..config import FlowLMConfig
 from ..models import flowlm, mimi_stream
+from ..rng import frame_noise
+from ..text import estimate_frames, prepare_text
 
 
 def flow_frame_step(w, cache: flowlm.KVCache, x: torch.Tensor, noise: torch.Tensor,

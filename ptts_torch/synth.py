@@ -23,8 +23,8 @@ import sys
 
 import numpy as np
 
-from ptts_tpu.config import FlowLMConfig, MimiConfig
-from ptts_tpu.io.safetensors import save_safetensors
+from .config import FlowLMConfig, MimiConfig
+from .io.safetensors import save_safetensors
 
 WEIGHTS_NAME = "tts_b6369a24.safetensors"
 

@@ -88,8 +88,11 @@ def _events(trace_dir: str) -> List[dict]:
     return [e for e in events if e.get("ph") == "X"]
 
 
-def _device_events(trace_dir: str) -> List[dict]:
-    return [e for e in _events(trace_dir) if e.get("cat") in DEVICE_CATEGORIES]
+def device_events(trace_dir: str) -> List[dict]:
+    """The device events (kernels, copies, sets) of the newest trace in
+    trace_dir, in start-time order."""
+    return sorted((e for e in _events(trace_dir) if e.get("cat") in DEVICE_CATEGORIES),
+                  key=lambda e: float(e["ts"]))
 
 
 def summarize_trace(trace_dir: str) -> Dict[str, dict]:
@@ -99,7 +102,7 @@ def summarize_trace(trace_dir: str) -> Dict[str, dict]:
     covering only device events (host events are dropped).
     """
     agg: Dict[str, dict] = defaultdict(lambda: {"total_us": 0.0, "count": 0, "max_us": 0.0})
-    for e in _device_events(trace_dir):
+    for e in device_events(trace_dir):
         dur = float(e.get("dur", 0.0))
         a = agg[str(e.get("name", ""))]
         a["total_us"] += dur
@@ -112,7 +115,7 @@ def busy_us(trace_dir: str) -> float:
     """Device busy time in us: the union of the device events' intervals
     (the caller divides it by its own wall clock)."""
     spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
-                   for e in _device_events(trace_dir))
+                   for e in device_events(trace_dir))
     busy, end = 0.0, -float("inf")
     for a, z in spans:
         if z > end:

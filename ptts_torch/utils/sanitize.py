@@ -1,22 +1,56 @@
 """Stage-boundary finite guards for the port (PTTS_SANITIZE=1), the
 counterpart of ptts_tpu/utils/sanitize.py.
 
-The switch and the error are ptts_tpu's own, so one ``set_enabled`` or one
-PTTS_SANITIZE governs both packages. The two checks are rewritten here:
-ptts_tpu's ``check_tree`` walks the tree with jax (which the GPU machine
-does not have), and its ``check_finite`` reads arrays with ``np.asarray``,
-which a CUDA tensor refuses. When sanitize mode is off both return at once;
-when it is on, each tensor is read back to the host once.
+The port keeps its own switch and error: like the JAX package it reads
+PTTS_SANITIZE once, and ``set_enabled`` overrides it for this package
+alone. ``check_tree`` walks nested dicts, lists and tuples itself, and
+``check_finite`` reads torch tensors on any device. When sanitize mode is
+off both return at once; when it is on, each tensor is read back to the
+host once.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Iterable, Optional
 
 import numpy as np
 import torch
 
-from ptts_tpu.utils.sanitize import SanitizeError, _find_nonfinite, enabled, set_enabled  # noqa: F401
+
+class SanitizeError(RuntimeError):
+    """A stage-boundary guard found a non-finite value."""
+
+
+_enabled_cache: Optional[bool] = None
+
+
+def enabled() -> bool:
+    """True iff PTTS_SANITIZE=1. Cached after the first read so the guard
+    call sites cost one probe on the serving path."""
+    global _enabled_cache
+    if _enabled_cache is None:
+        _enabled_cache = os.environ.get("PTTS_SANITIZE", "0") == "1"
+    return _enabled_cache
+
+
+def set_enabled(on: Optional[bool]) -> None:
+    """Override (or None to re-read the environment next time)."""
+    global _enabled_cache
+    _enabled_cache = on
+
+
+def _find_nonfinite(x: np.ndarray):
+    """Return (index-tuple, value) of the first non-finite element, or None."""
+    if x.dtype.kind in "iub":  # integers/bools are always finite
+        return None
+    if x.dtype.kind != "f" or x.dtype.itemsize < 4:
+        x = x.astype(np.float32)  # half precision: widen for a ufunc-safe isfinite
+    bad = ~np.isfinite(x)
+    if not bad.any():
+        return None
+    idx = tuple(int(i) for i in np.argwhere(bad)[0])
+    return idx, float(x[idx]) if idx else float(x)
 
 
 def _host(a) -> np.ndarray:

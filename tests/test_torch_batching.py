@@ -385,12 +385,12 @@ def test_bf16_pool_stays_near_f32(ctx, monkeypatch):
 
 def test_num_steps_above_pool_cap_rejected(ctx):
     b = pool(ctx, max_num_steps=2)
-    with pytest.raises(japi.PttsError, match="max_num_steps"):
+    with pytest.raises(tapi.PttsError, match="max_num_steps"):
         b.submit("hello", params=Params(num_frames=2, num_steps=3))
 
 
 def test_noise_budget_beyond_ring_rejected(ctx):
-    with pytest.raises(japi.PttsError, match="decode ring"):
+    with pytest.raises(tapi.PttsError, match="decode ring"):
         pool(ctx, max_len=48, noise_budget=17)
 
 
@@ -398,12 +398,12 @@ def test_direct_enqueue_revalidates_ring_safety(ctx):
     """enqueue() enforces the ring-safety invariant on raw Requests too."""
     b = pool(ctx, max_num_steps=2)
     ok = b.prepare("hello", params=Params(num_frames=2, num_steps=1, seed=7))
-    with pytest.raises(japi.PttsError, match="noise_budget"):
+    with pytest.raises(tapi.PttsError, match="noise_budget"):
         b.enqueue(dataclasses.replace(ok, max_frames=b.noise_budget + 1, noise=None))
     assert ok.noise is not None
-    with pytest.raises(japi.PttsError, match="noise rows"):
+    with pytest.raises(tapi.PttsError, match="noise rows"):
         b.enqueue(dataclasses.replace(ok, noise=ok.noise[:1], max_frames=2))
-    with pytest.raises(japi.PttsError, match="max_num_steps"):
+    with pytest.raises(tapi.PttsError, match="max_num_steps"):
         b.enqueue(dataclasses.replace(ok, num_steps=b.max_num_steps + 1))
     rid = b.enqueue(ok)
     assert b.drain()[rid].frames == 2
@@ -417,7 +417,7 @@ def test_max_queue_backpressure(ctx):
     with pytest.raises(QueueFull):
         b.submit("three", params=p)
     assert len(b.queue) == 2 and len(b.chunks) == 2
-    assert issubclass(QueueFull, japi.PttsError)
+    assert issubclass(QueueFull, tapi.PttsError)
 
 
 def test_cancel_queued_request(ctx):

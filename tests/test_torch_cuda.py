@@ -18,9 +18,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from ptts_torch import api, synth  # noqa: E402
+from ptts_torch.config import FlowLMConfig, MimiConfig  # noqa: E402
 from ptts_torch.ops.cuda import fused_attention as fa  # noqa: E402
 from ptts_torch.runtime.streaming import StreamingSession, fused_stream_step  # noqa: E402
-from ptts_tpu.config import FlowLMConfig, MimiConfig  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 GATES = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
@@ -93,6 +93,78 @@ def test_window_kernel_matches_plain(dev, dtype, B, T, context):
     want = fa.window_attention_qkv_plain(qkv, num_heads=8, head_dim=64, context=context)
     assert torch.isfinite(got).all()
     assert rel(got, want) <= GATES[dtype]
+
+
+def grid_lengths(B, T):
+    """Ragged lengths with 0, 1 and T among them (B = 1: T)."""
+    return [T, 0, 1, T // 2, max(T - 1, 0), 1, T, min(3, T)][:B]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 37, 64, 100, 127, 128])
+@pytest.mark.parametrize("B", [1, 4, 8])
+def test_causal_kernel_grid_with_nan_past_lengths(dev, dtype, T, B):
+    """B1 over the tile edges (T = 1, 63/64/65-row tails, 127/128) at every
+    batch the main path uses, 32- and 64-row query tiles alike; K/V rows at
+    or past lengths[b] hold NaN, which the kernel must never read: every
+    output row stays finite, and rows below the length (and the rotated K of
+    every finite row) are within the gates of the plain version, run on the
+    same projection with those rows zeroed (its p.V product would carry the
+    NaN through p = 0)."""
+    H = 16
+    lengths = grid_lengths(B, T)
+    clean = qkv_on(dev, dtype, B, T, H, seed=17 * T + B)
+    qkv = clean.clone()
+    for b, n in enumerate(lengths):
+        clean[b, n:, H * 64:] = 0
+        qkv[b, n:, H * 64:] = float("nan")
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    got, k_rot = fa.causal_attention_qkv(qkv, lens, num_heads=H, head_dim=64)
+    want, want_k = fa.causal_attention_qkv_plain(clean, lens, num_heads=H, head_dim=64)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    for b, n in enumerate(lengths):
+        if n:
+            assert rel(got[b, :n], want[b, :n]) <= GATES[dtype], (b, n)
+            assert rel(k_rot[b, :n], want_k[b, :n]) <= GATES[dtype], (b, n)
+        assert torch.isnan(k_rot[b, n:]).any(dim=-1).all()  # every position written
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 63, 65, 800, 1024])
+@pytest.mark.parametrize("context", [250, 17])
+def test_window_kernel_grid(dev, dtype, T, context):
+    qkv = qkv_on(dev, dtype, 2, T, 8, seed=3 * T + context)
+    got = fa.window_attention_qkv(qkv, num_heads=8, head_dim=64, context=context)
+    want = fa.window_attention_qkv_plain(qkv, num_heads=8, head_dim=64, context=context)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert rel(got, want) <= GATES[dtype]
+
+
+def test_shared_memory_limit_raised_once(dev):
+    """cudaFuncSetAttribute runs once per kernel and device: a second round
+    of launches at the same shapes (and at others) adds no call."""
+    def round_():
+        for dtype in (torch.float32, torch.bfloat16):
+            for B, T in ((8, 128), (1, 14)):  # 64- and 32-row query tiles
+                qkv = qkv_on(dev, dtype, B, T, 16, seed=B)
+                lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+                fa.causal_attention_qkv(qkv, lens, num_heads=16, head_dim=64)
+            for B, T in ((2, 1024), (1, 64)):
+                fa.window_attention_qkv(qkv_on(dev, dtype, B, T, 8, seed=T), num_heads=8,
+                                        head_dim=64, context=250)
+        torch.cuda.synchronize()
+
+    round_()
+    first = fa.attribute_calls()
+    assert first >= 1
+    round_()
+    assert fa.attribute_calls() == first
+    fa.causal_attention_qkv(qkv_on(dev, torch.float32, 3, 77, 16, seed=0),
+                            torch.full((3,), 50, dtype=torch.int32, device=dev),
+                            num_heads=16, head_dim=64)
+    assert fa.attribute_calls() == first
 
 
 def test_kernels_refuse_what_they_cannot_take(dev):

@@ -413,7 +413,7 @@ def test_spec_admit_on_a_1d_mesh(ctx):
 
 
 def test_spec_admit_refused_with_two_host_groups(ctx):
-    with pytest.raises(japi.PttsError, match="single host group"):
+    with pytest.raises(tapi.PttsError, match="single host group"):
         ContinuousBatcher(ctx.engine, mesh=hmesh4(), spec_admit=True, **POOL)
 
 

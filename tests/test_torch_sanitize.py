@@ -1,6 +1,7 @@
 """PTTS_SANITIZE in the port (ptts_torch/utils/sanitize.py and the engine's
-three guard points), on the tiny synthetic model, CPU, f32. The switch is
-ptts_tpu's: one set_enabled governs both packages."""
+three guard points), on the tiny synthetic model, CPU, f32. Both packages
+read the one environment switch; the port keeps its own override and its
+own error class."""
 
 import os
 import subprocess
@@ -36,15 +37,21 @@ def ctx(tmp_path_factory):
     return tapi.Context(path, flowlm_cfg=TINY_FLOWLM, mimi_cfg=TINY_MIMI, device="cpu")
 
 
-def test_one_switch_for_both_packages():
-    assert sanitize.SanitizeError is jsanitize.SanitizeError
+def test_one_switch_for_both_packages(monkeypatch):
+    """PTTS_SANITIZE turns both packages on; set_enabled overrides the
+    port's switch alone, and the port raises its own SanitizeError."""
+    assert sanitize.SanitizeError is not jsanitize.SanitizeError
+    assert issubclass(sanitize.SanitizeError, RuntimeError)
+    monkeypatch.setenv("PTTS_SANITIZE", "1")
     try:
-        jsanitize.set_enabled(True)
-        assert sanitize.enabled()
+        sanitize.set_enabled(None)
+        jsanitize.set_enabled(None)
+        assert sanitize.enabled() and jsanitize.enabled()
         sanitize.set_enabled(False)
-        assert not jsanitize.enabled()
+        assert not sanitize.enabled() and jsanitize.enabled()
     finally:
         sanitize.set_enabled(None)
+        jsanitize.set_enabled(None)
 
 
 def test_env_var_turns_it_on(monkeypatch):

@@ -85,13 +85,13 @@ def test_bf16_engine_stays_near_f32_reference(contexts, monkeypatch):
 
 def test_port_runs_without_jax(tmp_path):
     """A fresh interpreter imports ptts_torch, writes a tiny synthetic model,
-    generates on the CPU and never loads jax (tests/conftest.py imports jax,
-    so this needs its own process)."""
+    generates on the CPU and never loads jax or the JAX package
+    (tests/conftest.py imports jax, so this needs its own process)."""
     code = f"""
 import sys
 sys.path.insert(0, {REPO!r})
-from ptts_tpu.config import FlowLMConfig, MimiConfig
 from ptts_torch import api, cli, synth
+from ptts_torch.config import FlowLMConfig, MimiConfig
 fc = FlowLMConfig(vocab=60, text_dim=16, d_model=16, num_heads=2, head_dim=8, num_layers=2,
                   hidden=32, latent_dim=8, flow_dim=16, flow_depth=2, time_freqs=4)
 mc = MimiConfig(latent_dim=8, d_model=8, num_heads=2, head_dim=4, num_layers=1, hidden=16,
@@ -101,7 +101,8 @@ path = synth.write_model_dir({str(tmp_path)!r}, fc, mc, seed=1, scale=0.3)
 ctx = api.load_dir(path, flowlm_cfg=fc, mimi_cfg=mc, device="cpu")
 out = ctx.engine.generate_full("Hello world!", params=api.Params(seed=1, num_frames=4))
 assert len(out.audio.samples) == out.frames_used * mc.frame_samples > 0
-assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+assert not [m for m in sys.modules if m.startswith(("jax", "ptts_tpu"))], sorted(
+    m for m in sys.modules if m.startswith(("jax", "ptts_tpu")))
 print("ok")
 """
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
