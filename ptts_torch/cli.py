@@ -125,7 +125,8 @@ def _mimi_debug(ctx: api.Context, args, out, level: int) -> None:
     scaled = flowlm.scale_latents(engine.fw, latents)                  # [F, latent]
     if args.mimi_test:
         x = flowlm._linear(engine.mw.quant_w, None, scaled[:1])         # [1, d]
-        emb = mimi.transformer(engine.mw.transformer, x[None], engine.mimi_cfg)[0, 0]
+        emb = mimi.transformer(engine.mw.transformer, x[None], engine.mimi_cfg,
+                               engine.window_impl)[0, 0]
         emb = emb.float().cpu().numpy()
         print("Mimi decode (transformer) stats: mean=%.6f min=%.6f max=%.6f"
               % (emb.mean(), emb.min(), emb.max()))

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from . import convert, synth
-from .config import FlowLMConfig, MimiConfig
+from .config import FlowLMConfig, KernelFlags, MimiConfig
 from .models import flowlm, mimi
 from .ops.norms import layernorm
 from .parallel import mesh as pmesh
@@ -199,7 +199,8 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
     # slots fill at most 4 positions: a shard without a slot is refused)
     pool_mesh = pmesh.make_multihost_mesh(2, devices[:4])
     eng = types.SimpleNamespace(flowlm_cfg=cfg, mimi_cfg=mcfg, dtype=torch.float32, fw=fw,
-                                mw=mw, device=devices[0])
+                                mw=mw, device=devices[0], flags=KernelFlags(),
+                                prefill_impl="auto")
     bat = ContinuousBatcher(eng, slots=4, max_len=24, admit_chunk=2, prefix_budget=T0,
                             max_num_steps=2, mesh=pool_mesh)
     rng = np.random.default_rng(0)

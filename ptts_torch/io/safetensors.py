@@ -18,10 +18,12 @@ import json
 import mmap
 import os
 import struct
+import warnings
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 # dtype table mirrors ptts_safetensors.h (F32/F16/BF16/I32/I64/BOOL).
 _DTYPE_SIZE = {
@@ -171,6 +173,29 @@ class SafetensorsFile:
         if t is None:
             raise KeyError(name)
         return self.get_f32(t)
+
+    def get_bf16(self, t: TensorEntry) -> torch.Tensor:
+        """Tensor as a torch.bfloat16 CPU tensor, for bf16 engines.
+
+        BF16-stored tensors are zero-copy bit views of the mmap (no host
+        conversion, half the upload bytes of the f32 route); F32/F16-stored
+        tensors round to nearest even (torch's f32 -> bf16 cast, the rounding
+        ml_dtypes applies in the JAX package's get_bf16). The mmap is
+        read-only and so is the view: callers copy before they write.
+        """
+        v = self.view(t)
+        if t.dtype == "BF16" and t.data_size == 0:
+            return torch.empty(t.shape, dtype=torch.bfloat16)
+        if t.dtype == "BF16":
+            with warnings.catch_warnings():
+                # frombuffer warns that the buffer is not writable; the view
+                # is only ever read (the weights are packed from it)
+                warnings.filterwarnings("ignore", message="The given buffer is not writable")
+                bits = torch.frombuffer(self.raw(t), dtype=torch.int16)
+            return bits.view(torch.bfloat16).reshape(t.shape)
+        if t.dtype in ("F32", "F16"):
+            return torch.from_numpy(v.astype(np.float32)).to(torch.bfloat16)
+        raise ValueError(f"tensor {t.name}: cannot convert {t.dtype} to bf16")
 
     # -- introspection ------------------------------------------------------
 

@@ -7,8 +7,11 @@ frame loops are Python loops over frame_step: generate_latents_while stops
 once every stream is done, generate_latents runs a fixed, resumable number
 of frames with no host sync, and runtime/streaming runs one frame per call.
 The prompt prefill runs the fused RoPE + causal attention kernel
-(ops/cuda/fused_attention.causal_attention_qkv); the per-frame decode
-attention is the plain masked einsum, as the JAX package leaves it to XLA.
+(ops/cuda/fused_attention.causal_attention_qkv) or, with
+``attn_impl="plain"``, its plain version; the per-frame decode attention is
+the masked einsum, as the JAX package leaves it to XLA, or with
+``KernelFlags.decode_impl="blocked"`` the blocked online softmax
+(ops/attention.decode_attention_blocked).
 """
 
 from __future__ import annotations
@@ -21,12 +24,38 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..config import FlowLMConfig
+from .. import convert
+from ..config import FlowLMConfig, KernelFlags, resolve_kernel_impl
 from ..ops.activations import gelu_erf, silu
-from ..ops.attention import decode_attention_masked
-from ..ops.cuda.fused_attention import causal_attention_qkv
+from ..ops.attention import decode_attention_blocked, decode_attention_masked
+from ..ops.cuda.fused_attention import causal_attention_qkv, causal_attention_qkv_plain
 from ..ops.norms import kyutai_rmsnorm, layernorm
 from ..ops.rope import rope_rotate_halves
+
+DEFAULT_FLAGS = KernelFlags()
+
+
+def _decode_attention_dispatch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                               mask: torch.Tensor, scalars: tuple,
+                               flags: KernelFlags) -> torch.Tensor:
+    """The decode attention that ``flags.decode_impl`` chooses: "auto" ==
+    "einsum" (decode_attention_masked), or "blocked"
+    (decode_attention_blocked over ``scalars`` = (prefix_len, start, cursor)).
+    With ``flags.validate`` and "blocked", runs both, prints
+    ``[ptts] validate decode_attention maxdiff=...`` (beside the largest
+    |output|) and returns the masked einsum's, as the JAX package does
+    (the reference's PTTS_CUDA_VALIDATE pattern). The print reads both
+    results back, so validate mode syncs the host once per layer."""
+    if flags.decode_impl != "blocked":
+        return decode_attention_masked(q, k_cache, v_cache, mask)
+    b = decode_attention_blocked(q, k_cache, v_cache, *scalars)
+    if not flags.validate:
+        return b
+    a = decode_attention_masked(q, k_cache, v_cache, mask)
+    diff = (a.float() - b.float()).abs().max().item()
+    top = a.float().abs().max().item()
+    print(f"[ptts] validate decode_attention maxdiff={diff:.6e} max={top:.6e}")
+    return a
 
 # ---------------------------------------------------------------------------
 # Weight loading (numpy; returns the same host dict as the JAX load_weights)
@@ -47,38 +76,51 @@ def _find(st, name: str):
     return None
 
 
-def _get(st, name: str, optional: bool = False) -> Optional[np.ndarray]:
+def _get(st, name: str, optional: bool = False, dtype: torch.dtype = torch.float32):
     t = _find(st, name)
     if t is None:
         if optional:
             return None
         raise KeyError(f"Missing tensor: {name}")
-    return st.get_f32(t)
+    return st.get_f32(t) if dtype == torch.float32 else st.get_bf16(t)
 
 
-def load_weights(st, cfg: FlowLMConfig = FlowLMConfig()) -> dict:
-    """The FlowLM host dict (f32 numpy) from a SafetensorsFile; leaf for leaf
-    the dict ptts_tpu.models.flowlm.load_weights returns."""
+def load_weights(st, cfg: FlowLMConfig = FlowLMConfig(),
+                 dtype: torch.dtype = torch.float32) -> dict:
+    """The FlowLM host dict from a SafetensorsFile; leaf for leaf the dict
+    ptts_tpu.models.flowlm.load_weights returns.
+
+    ``dtype=torch.float32``: f32 numpy arrays. ``dtype=torch.bfloat16`` is
+    the bf16 engine's cold start: torch.bfloat16 CPU tensors, BF16-stored
+    ones zero-copy views of the checkpoint mmap (no host f32 round trip,
+    half the upload bytes), others rounded to nearest even
+    (SafetensorsFile.get_bf16), bit for bit the JAX package's bf16 load."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"load_weights: dtype {dtype} is not float32 or bfloat16")
     L, D = cfg.num_layers, cfg.flow_depth
+    stack_fn = np.stack if dtype == torch.float32 else torch.stack
 
     def stack(fmt: str, n: int = L, optional: bool = False):
-        vals = [_get(st, fmt.format(i), optional=optional) for i in range(n)]
-        return None if any(v is None for v in vals) else np.stack(vals)
+        vals = [_get(st, fmt.format(i), optional=optional, dtype=dtype) for i in range(n)]
+        return None if any(v is None for v in vals) else stack_fn(vals)
+
+    def get(name: str, optional: bool = False):
+        return _get(st, name, optional=optional, dtype=dtype)
 
     tl = "transformer.layers.{}."
     te = "flow_net.time_embed.{}."
     rb = "flow_net.res_blocks.{}."
     return {
-        "embed": _get(st, "conditioner.embed.weight"),
-        "speaker_proj": _get(st, "speaker_proj_weight", optional=True),
-        "emb_std": _get(st, "emb_std"),
-        "emb_mean": _get(st, "emb_mean"),
-        "bos_emb": _get(st, "bos_emb"),
-        "input_linear": _get(st, "input_linear.weight"),
-        "out_norm_w": _get(st, "out_norm.weight"),
-        "out_norm_b": _get(st, "out_norm.bias"),
-        "out_eos_w": _get(st, "out_eos.weight").reshape(-1),
-        "out_eos_b": _get(st, "out_eos.bias").reshape(()),
+        "embed": get("conditioner.embed.weight"),
+        "speaker_proj": get("speaker_proj_weight", optional=True),
+        "emb_std": get("emb_std"),
+        "emb_mean": get("emb_mean"),
+        "bos_emb": get("bos_emb"),
+        "input_linear": get("input_linear.weight"),
+        "out_norm_w": get("out_norm.weight"),
+        "out_norm_b": get("out_norm.bias"),
+        "out_eos_w": get("out_eos.weight").reshape(-1),
+        "out_eos_b": get("out_eos.bias").reshape(()),
         "in_proj": stack(tl + "self_attn.in_proj.weight"),
         "out_proj": stack(tl + "self_attn.out_proj.weight"),
         "norm1_w": stack(tl + "norm1.weight"),
@@ -88,10 +130,10 @@ def load_weights(st, cfg: FlowLMConfig = FlowLMConfig()) -> dict:
         "linear1": stack(tl + "linear1.weight"),
         "linear2": stack(tl + "linear2.weight"),
         "flow": {
-            "cond_w": _get(st, "flow_net.cond_embed.weight"),
-            "cond_b": _get(st, "flow_net.cond_embed.bias"),
-            "input_w": _get(st, "flow_net.input_proj.weight"),
-            "input_b": _get(st, "flow_net.input_proj.bias"),
+            "cond_w": get("flow_net.cond_embed.weight"),
+            "cond_b": get("flow_net.cond_embed.bias"),
+            "input_w": get("flow_net.input_proj.weight"),
+            "input_b": get("flow_net.input_proj.bias"),
             "time": {
                 "lin0_w": stack(te + "mlp.0.weight", 2),
                 "lin0_b": stack(te + "mlp.0.bias", 2),
@@ -110,12 +152,22 @@ def load_weights(st, cfg: FlowLMConfig = FlowLMConfig()) -> dict:
                 "ada_w": stack(rb + "adaLN_modulation.1.weight", D),
                 "ada_b": stack(rb + "adaLN_modulation.1.bias", D),
             },
-            "final_linear_w": _get(st, "flow_net.final_layer.linear.weight"),
-            "final_linear_b": _get(st, "flow_net.final_layer.linear.bias"),
-            "final_ada_w": _get(st, "flow_net.final_layer.adaLN_modulation.1.weight"),
-            "final_ada_b": _get(st, "flow_net.final_layer.adaLN_modulation.1.bias"),
+            "final_linear_w": get("flow_net.final_layer.linear.weight"),
+            "final_linear_b": get("flow_net.final_layer.linear.bias"),
+            "final_ada_w": get("flow_net.final_layer.adaLN_modulation.1.weight"),
+            "final_ada_b": get("flow_net.final_layer.adaLN_modulation.1.bias"),
         },
     }
+
+
+def to_device(w: dict, dtype: torch.dtype = torch.float32, cfg: FlowLMConfig = FlowLMConfig(),
+              device="cpu", stats=None) -> convert.TensorTree:
+    """The host dict as device weights in the compute dtype, in_proj's Q/K
+    rows permuted to the halves RoPE layout, through one packed copy
+    (convert.flowlm_weights, utils/packing). The model below rotates halves,
+    so device weights must come through here. ``stats``: see
+    utils/packing.tree_to_device."""
+    return convert.flowlm_weights(w, cfg, dtype, device, stats)
 
 
 # ---------------------------------------------------------------------------
@@ -191,18 +243,36 @@ def make_cache(cfg: FlowLMConfig, batch: int, max_len: int,
                    cursor=0, t0=0)
 
 
-def prefill_kv(w, x: torch.Tensor, lengths: torch.Tensor, cfg: FlowLMConfig
-               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def resolve_prefill_impl(choice: str = "auto", device="cpu") -> str:
+    """The prefill attention for an engine on ``device``: "kernel" (B1,
+    ops/cuda/fused_attention.causal_attention_qkv) or "plain" (its plain
+    version). "auto" consults PTTS_PALLAS_PREFILL (0 -> plain, 1 -> kernel),
+    then the device; "kernel" on a CPU device raises ValueError
+    (config.resolve_kernel_impl)."""
+    on_card = torch.device(device).type == "cuda"
+    return resolve_kernel_impl(choice, "PTTS_PALLAS_PREFILL", on_card, "prefill_impl")
+
+
+def prefill_kv(w, x: torch.Tensor, lengths: torch.Tensor, cfg: FlowLMConfig,
+               attn_impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched causal prompt pass over x [B, T, d] with [B] int32 valid
-    lengths. Returns (k [L, B, T, H, D], v, last [B, d])."""
+    lengths. Returns (k [L, B, T, H, D], v, last [B, d]). ``attn_impl``:
+    "kernel" (B1; on a CPU tensor its wrapper computes the plain version),
+    "plain" (the plain version on any device) or "auto" (from x's device:
+    the kernel on CUDA)."""
     B, T, d = x.shape
     H, D = cfg.num_heads, cfg.head_dim
+    if attn_impl == "auto":
+        attn_impl = "kernel" if x.device.type == "cuda" else "plain"
+    if attn_impl not in ("kernel", "plain"):
+        raise ValueError(f"attn_impl {attn_impl!r}: expected auto, kernel or plain")
+    attention = causal_attention_qkv if attn_impl == "kernel" else causal_attention_qkv_plain
     ks, vs = [], []
     for l in range(cfg.num_layers):
         xn = layernorm(x, w.norm1_w[l], w.norm1_b[l], cfg.ln_eps)
         qkv = _linear(w.in_proj[l], None, xn)
-        attn, k_rot = causal_attention_qkv(qkv, lengths, num_heads=H, head_dim=D,
-                                           max_period=cfg.max_period)
+        attn, k_rot = attention(qkv, lengths, num_heads=H, head_dim=D,
+                                max_period=cfg.max_period)
         ks.append(k_rot.reshape(B, T, H, D))
         vs.append(qkv[..., 2 * d :].reshape(B, T, H, D))
         x = x + _linear(w.out_proj[l], None, attn)
@@ -213,19 +283,20 @@ def prefill_kv(w, x: torch.Tensor, lengths: torch.Tensor, cfg: FlowLMConfig
 
 
 def prefill_init(w, x: torch.Tensor, lengths: torch.Tensor, cfg: FlowLMConfig,
-                 max_len: int) -> Tuple[KVCache, torch.Tensor]:
+                 max_len: int, attn_impl: str = "auto") -> Tuple[KVCache, torch.Tensor]:
     """Prompt pass that builds a [L, B, max_len, H, D] cache holding the
-    prompt's K/V in its first T columns."""
-    return prefill(w, make_cache(cfg, x.shape[0], max_len, x.dtype, x.device), x, lengths, cfg)
+    prompt's K/V in its first T columns (``attn_impl``: see prefill_kv)."""
+    return prefill(w, make_cache(cfg, x.shape[0], max_len, x.dtype, x.device), x, lengths,
+                   cfg, attn_impl)
 
 
 def prefill(w, cache: KVCache, x: torch.Tensor, lengths: torch.Tensor,
-            cfg: FlowLMConfig) -> Tuple[KVCache, torch.Tensor]:
+            cfg: FlowLMConfig, attn_impl: str = "auto") -> Tuple[KVCache, torch.Tensor]:
     """Prompt pass into an existing cache: the prompt's K/V go to its first
     T columns in place, and start = t0 = cursor = T. Returns the cache and
     the transformer output at each stream's last valid position [B, d]."""
     T = x.shape[1]
-    k_new, v_new, last = prefill_kv(w, x, lengths, cfg)
+    k_new, v_new, last = prefill_kv(w, x, lengths, cfg, attn_impl)
     cache.k[:, :, :T] = k_new.to(cache.k.dtype)
     cache.v[:, :, :T] = v_new.to(cache.v.dtype)
     cache.prefix_len.copy_(lengths)
@@ -233,10 +304,12 @@ def prefill(w, cache: KVCache, x: torch.Tensor, lengths: torch.Tensor,
     return dataclasses.replace(cache, cursor=T, t0=T), last
 
 
-def decode_step(w, cache: KVCache, x: torch.Tensor, cfg: FlowLMConfig
-                ) -> Tuple[KVCache, torch.Tensor]:
+def decode_step(w, cache: KVCache, x: torch.Tensor, cfg: FlowLMConfig,
+                flags: KernelFlags = DEFAULT_FLAGS) -> Tuple[KVCache, torch.Tensor]:
     """One KV-cached transformer step for B streams [B, d] at their own
-    positions; writes each layer's k/v at the cursor column in place."""
+    positions; writes each layer's k/v at the cursor column in place. The
+    decode attention is the one ``flags`` chooses
+    (_decode_attention_dispatch)."""
     B, d = x.shape
     H, D = cfg.num_heads, cfg.head_dim
     pos = cache.pos
@@ -249,7 +322,8 @@ def decode_step(w, cache: KVCache, x: torch.Tensor, cfg: FlowLMConfig
         q, k = rope_rotate_halves(q, k, pos[:, None], cfg.max_period)
         cache.k[l, :, col] = k[:, 0].to(cache.k.dtype)
         cache.v[l, :, col] = v[:, 0].to(cache.v.dtype)
-        attn = decode_attention_masked(q[:, 0], cache.k[l], cache.v[l], mask)
+        attn = _decode_attention_dispatch(q[:, 0], cache.k[l], cache.v[l], mask,
+                                          (cache.prefix_len, cache.start, col), flags)
         x = x + _linear(w.out_proj[l], None, attn.reshape(B, d))
         xn = layernorm(x, w.norm2_w[l], w.norm2_b[l], cfg.ln_eps)
         x = x + _linear(w.linear2[l], None, gelu_erf(_linear(w.linear1[l], None, xn)))
@@ -367,7 +441,7 @@ def frame_step(w, cache: KVCache, x: torch.Tensor, noise: torch.Tensor,
                time_embs: torch.Tensor, i, eos_step: torch.Tensor, done: torch.Tensor,
                cfg: FlowLMConfig, *, eos_enabled: bool = True, eos_threshold=-4.0,
                eos_min_frames=1, eos_after=0, max_frames: Optional[torch.Tensor] = None,
-               num_steps: Optional[torch.Tensor] = None):
+               num_steps: Optional[torch.Tensor] = None, flags: KernelFlags = DEFAULT_FLAGS):
     """One generation frame for B streams: out_norm -> EOS -> LSD ->
     input_linear -> KV decode step.
 
@@ -389,14 +463,15 @@ def frame_step(w, cache: KVCache, x: torch.Tensor, noise: torch.Tensor,
     done = done | ((eos_step >= 0) & (i >= eos_step + eos_after))
     if max_frames is not None:
         done = done | (i + 1 >= max_frames)
-    cache, x = decode_step(w, cache, _linear(w.input_linear, None, latent), cfg)
+    cache, x = decode_step(w, cache, _linear(w.input_linear, None, latent), cfg, flags)
     return cache, x, latent, eos, eos_step, done, normed, flow0
 
 
 def _frame_loop(w, cache: KVCache, x: torch.Tensor, noise: torch.Tensor, cfg: FlowLMConfig,
                 max_frames: int, num_steps: int, *, stop_when_done: bool, eos_enabled: bool,
                 eos_threshold, eos_min_frames, eos_after, max_frames_per_stream=None,
-                frame0: int = 0, eos_step0=None, done0=None, used0=None) -> GenResult:
+                frame0: int = 0, eos_step0=None, done0=None, used0=None,
+                flags: KernelFlags = DEFAULT_FLAGS) -> GenResult:
     """Frames frame0 .. frame0 + max_frames - 1 through frame_step, with the
     per-stream EOS state and the parity taps of frame 0."""
     B = x.shape[0]
@@ -420,7 +495,7 @@ def _frame_loop(w, cache: KVCache, x: torch.Tensor, noise: torch.Tensor, cfg: Fl
             w, cache, x, noise[:, j], time_embs, i, eos_step, done, cfg,
             eos_enabled=eos_enabled, eos_threshold=eos_threshold,
             eos_min_frames=eos_min_frames, eos_after=eos_after,
-            max_frames=max_frames_per_stream)
+            max_frames=max_frames_per_stream, flags=flags)
         if i == 0:
             first_cond, first_flow = normed, flow0
         used = torch.where(was_done, used, i + 1)
@@ -449,6 +524,7 @@ def generate_latents(
     eos_step0: Optional[torch.Tensor] = None,
     done0: Optional[torch.Tensor] = None,
     used0: Optional[torch.Tensor] = None,
+    flags: KernelFlags = DEFAULT_FLAGS,
 ) -> GenResult:
     """Fixed-length frame loop: all max_frames frames run, with no host sync.
     Resumable: pass the returned cache and x as the next call's cache and
@@ -458,7 +534,7 @@ def generate_latents(
                        stop_when_done=False, eos_enabled=eos_enabled,
                        eos_threshold=eos_threshold, eos_min_frames=eos_min_frames,
                        eos_after=eos_after, frame0=frame0, eos_step0=eos_step0,
-                       done0=done0, used0=used0)
+                       done0=done0, used0=used0, flags=flags)
 
 
 def generate_latents_while(
@@ -473,6 +549,7 @@ def generate_latents_while(
     eos_min_frames: int = 1,
     eos_after=0,                # int or [B]
     max_frames_per_stream: Optional[torch.Tensor] = None,  # [B]
+    flags: KernelFlags = DEFAULT_FLAGS,
 ) -> GenResult:
     """The frame loop with per-stream EOS state, stopping once every stream
     is done (one host sync per frame). Frames after that stay zero in the
@@ -480,7 +557,8 @@ def generate_latents_while(
     return _frame_loop(w, cache, x0, noise, cfg, max_frames, num_steps,
                        stop_when_done=True, eos_enabled=True,
                        eos_threshold=eos_threshold, eos_min_frames=eos_min_frames,
-                       eos_after=eos_after, max_frames_per_stream=max_frames_per_stream)
+                       eos_after=eos_after, max_frames_per_stream=max_frames_per_stream,
+                       flags=flags)
 
 
 def scale_latents(w, latents: torch.Tensor) -> torch.Tensor:

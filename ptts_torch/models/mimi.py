@@ -5,8 +5,10 @@ Quantizer out-proj -> depthwise transposed upsample (12.5 -> 200 Hz) ->
 sliding-window depth transformer -> SEANet transposed-conv stack, batch-first
 and channels-last at the function boundaries as in the JAX package. The
 transformer's attention is the fused RoPE + window kernel
-(ops/cuda/fused_attention.window_attention_qkv). ``w`` is the module from
-ptts_torch.convert.mimi_weights, buffers named as the JAX host dict.
+(ops/cuda/fused_attention.window_attention_qkv) or, with
+``window_impl="plain"``, its plain version. ``w`` is the module from
+to_device (ptts_torch.convert.mimi_weights), buffers named as the JAX host
+dict.
 """
 
 from __future__ import annotations
@@ -16,13 +18,25 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import MimiConfig
+from .. import convert
+from ..config import MimiConfig, resolve_kernel_impl
 from ..ops.activations import gelu_tanh
 from ..ops.conv import (conv1d_causal, convtr1d_2s, elu, prepare_conv_kernel,
                         prepare_convtr_halves)
-from ..ops.cuda.fused_attention import window_attention_qkv
+from ..ops.cuda.fused_attention import window_attention_qkv, window_attention_qkv_plain
 from ..ops.norms import layernorm
 from .flowlm import _linear
+
+
+def resolve_window_impl(choice: str = "auto", device="cpu") -> str:
+    """The windowed attention for an engine on ``device``: "kernel" (B2,
+    ops/cuda/fused_attention.window_attention_qkv) or "plain" (its plain
+    version). "auto" consults PTTS_PALLAS_WINDOW (0 -> plain, 1 -> kernel),
+    then the device; "kernel" on a CPU device raises ValueError
+    (config.resolve_kernel_impl)."""
+    on_card = torch.device(device).type == "cuda"
+    return resolve_kernel_impl(choice, "PTTS_PALLAS_WINDOW", on_card, "window_impl")
+
 
 # ---------------------------------------------------------------------------
 # Weight loading (numpy; returns the same host dict as the JAX load_weights)
@@ -111,20 +125,37 @@ def load_weights(st, cfg: MimiConfig = MimiConfig()) -> dict:
     }
 
 
+def to_device(w: dict, dtype: torch.dtype = torch.float32, cfg: MimiConfig = MimiConfig(),
+              device="cpu", stats=None) -> convert.TensorTree:
+    """The host dict as device weights in the compute dtype, the
+    transformer's Q/K rows permuted to the halves RoPE layout, through one
+    packed copy (convert.mimi_weights, utils/packing). ``stats``: see
+    utils/packing.tree_to_device."""
+    return convert.mimi_weights(w, cfg, dtype, device, stats)
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
 
 
-def transformer(w, x: torch.Tensor, cfg: MimiConfig) -> torch.Tensor:
+def transformer(w, x: torch.Tensor, cfg: MimiConfig, window_impl: str = "auto") -> torch.Tensor:
     """Sliding-window causal depth transformer with LayerScale, positions
-    0..T-1. x: [B, T, d_model]; ``w`` is the weights' ``transformer`` part."""
+    0..T-1. x: [B, T, d_model]; ``w`` is the weights' ``transformer`` part.
+    ``window_impl``: "kernel" (B2; on a CPU tensor its wrapper computes the
+    plain version), "plain" (the plain version on any device) or "auto"
+    (from x's device: the kernel on CUDA)."""
     H, D = cfg.num_heads, cfg.head_dim
+    if window_impl == "auto":
+        window_impl = "kernel" if x.device.type == "cuda" else "plain"
+    if window_impl not in ("kernel", "plain"):
+        raise ValueError(f"window_impl {window_impl!r}: expected auto, kernel or plain")
+    attention = window_attention_qkv if window_impl == "kernel" else window_attention_qkv_plain
     for l in range(cfg.num_layers):
         xn = layernorm(x, w.norm1_w[l], w.norm1_b[l], cfg.ln_eps)
         qkv = _linear(w.in_proj[l], None, xn)
-        attn = window_attention_qkv(qkv, num_heads=H, head_dim=D, context=cfg.context,
-                                    max_period=cfg.max_period)
+        attn = attention(qkv, num_heads=H, head_dim=D, context=cfg.context,
+                         max_period=cfg.max_period)
         add = _linear(w.out_proj[l], None, attn)
         if w.ls1 is not None:
             add = add * w.ls1[l]
@@ -152,10 +183,11 @@ def conv_stack(w, x: torch.Tensor, cfg: MimiConfig) -> torch.Tensor:
     return conv1d_causal(x, w.dec_out_kernel, w.dec_out_bias)
 
 
-def decode(w, latents: torch.Tensor, cfg: MimiConfig) -> torch.Tensor:
-    """Scaled latents [B, F, latent_dim] -> PCM [B, F * frame_samples]."""
+def decode(w, latents: torch.Tensor, cfg: MimiConfig, window_impl: str = "auto") -> torch.Tensor:
+    """Scaled latents [B, F, latent_dim] -> PCM [B, F * frame_samples]
+    (``window_impl``: see transformer)."""
     x = _linear(w.quant_w, None, latents)  # quantizer out-proj (1x1 conv)
     x = convtr1d_2s(x, w.upsample_w1, w.upsample_w2, None,
                     stride=cfg.upsample_stride, depthwise=True)
-    x = transformer(w.transformer, x, cfg)
+    x = transformer(w.transformer, x, cfg, window_impl)
     return conv_stack(w, x, cfg)[..., 0]

@@ -1,8 +1,9 @@
 """ctypes bindings for the C++ host library (ptts_torch/csrc/ptts_host.cpp,
 the port's copy of the JAX package's csrc/ptts_host.cpp).
 
-Builds the shared object on first use with g++ into ptts_torch/_build/,
-under a name keyed by a hash of the source; every entry point has a
+Builds the shared object on first use with g++ into the build directory of
+utils/compile_cache (default ptts_torch/_build/), under a name keyed by a
+hash of the source; every entry point has a
 pure-Python fallback so the host layer works without a compiler. Use
 ``native.available()`` to check.
 """
@@ -18,9 +19,10 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..utils.compile_cache import build_dir
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG, "csrc", "ptts_host.cpp")
-_BUILD_DIR = os.path.join(_PKG, "_build")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -37,12 +39,13 @@ def _build() -> Optional[str]:
         return None
     with open(_SRC, "rb") as f:
         src_hash = hashlib.sha256(f.read()).hexdigest()
-    so = os.path.join(_BUILD_DIR, f"libptts_host_{src_hash[:16]}.so")
+    out_dir = str(build_dir())
+    so = os.path.join(out_dir, f"libptts_host_{src_hash[:16]}.so")
     if os.path.isfile(so):
         return so
     tmp = f"{so}.{os.getpid()}.tmp"
     try:
-        os.makedirs(_BUILD_DIR, exist_ok=True)
+        os.makedirs(out_dir, exist_ok=True)
         subprocess.run(
             ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-o", tmp, _SRC],
             check=True, capture_output=True, timeout=120,

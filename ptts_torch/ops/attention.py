@@ -95,3 +95,60 @@ def decode_attention_masked(q: torch.Tensor, k_cache: torch.Tensor,
     probs = _masked_softmax(scores, mask[:, None, :])
     out = torch.einsum("bht,bthd->bhd", probs.to(v_cache.dtype).float(), v_cache.float())
     return out.to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     lengths: torch.Tensor, *, context: int = 0) -> torch.Tensor:
+    """decode_attention_masked with a per-stream length (+ window) mask:
+    key t of stream b is valid iff t < lengths[b] (and lengths[b] - 1 - t <
+    context when context > 0). Oracle variant, as in the JAX package: the
+    model builds its mask from the cursor-aligned KVCache; the tests keep
+    this independent formulation."""
+    t = torch.arange(k_cache.shape[1], device=k_cache.device)[None, :]
+    lengths = lengths.to(k_cache.device)[:, None]
+    mask = t < lengths
+    if context > 0:
+        mask = mask & ((lengths - 1 - t) < context)
+    return decode_attention_masked(q, k_cache, v_cache, mask)
+
+
+def decode_attention_blocked(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                             prefix_len: torch.Tensor, start: torch.Tensor, cursor: int, *,
+                             block_t: int = 128) -> torch.Tensor:
+    """Online-softmax decode attention that reads the cache only in blocks of
+    ``block_t`` columns up to the cursor: ceil((cursor + 1) / block_t) blocks.
+    ``cursor`` (the last valid decode column) is a host int, as the port's
+    KVCache keeps it, so the trip count needs no device read. block_t shrinks
+    until it divides Tmax. Column t of stream b is valid iff t < prefix_len[b]
+    or start[b] <= t <= cursor: the cache must not have wrapped (offline
+    paths; the continuous batcher's ring refuses this path).
+
+    q: [B, H, D]; k_cache/v_cache: [B, Tmax, H, D]. Returns [B, H, D]."""
+    B, Tmax, H, D = k_cache.shape
+    block_t = min(block_t, Tmax)
+    while Tmax % block_t:
+        block_t -= 1
+    scale = _scale(D)
+    dev = k_cache.device
+    prefix_len = prefix_len.to(dev)[:, None]
+    start = start.to(dev)[:, None]
+    qf = q.float()
+    m = torch.full((B, H, 1), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, H, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, H, D), dtype=torch.float32, device=dev)
+    for j in range(-(-(cursor + 1) // block_t)):
+        lo = j * block_t
+        k_blk = k_cache[:, lo : lo + block_t]
+        v_blk = v_cache[:, lo : lo + block_t]
+        t = torch.arange(lo, lo + block_t, device=dev)[None, :]
+        valid = (t < prefix_len) | ((t >= start) & (t <= cursor))
+        s = torch.einsum("bhd,bthd->bht", qf, k_blk.float()) * scale
+        s = torch.where(valid[:, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.einsum("bht,bthd->bhd", p.to(v_cache.dtype).float(),
+                                        v_blk.float())
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)

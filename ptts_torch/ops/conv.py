@@ -27,6 +27,18 @@ def prepare_conv_kernel(w_torch: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.transpose(w_torch, (2, 1, 0)))
 
 
+def prepare_convtr_kernel(w_torch: np.ndarray, groups: int) -> np.ndarray:
+    """torch ConvTranspose1d weight [in, out/g, k] -> flipped WIO [k, in/g, out]:
+    the transposed conv equals a regular conv over the stride-dilated input
+    with the kernel reversed along k. Oracle variant (with convtr1d_causal),
+    as in the JAX package."""
+    in_ch, out_per_group, k = w_torch.shape
+    in_per_group = in_ch // groups
+    w = w_torch.reshape(groups, in_per_group, out_per_group, k)[..., ::-1]
+    w = np.transpose(w, (3, 1, 0, 2))     # [k, in/g, g, out/g]
+    return np.ascontiguousarray(w.reshape(k, in_per_group, groups * out_per_group))
+
+
 def prepare_convtr_halves(w_torch: np.ndarray, groups: int):
     """Split a k == 2*stride ConvTranspose1d weight [in, out/g, k] into its
     two matmul tables. Output position p receives exactly two taps:
@@ -54,6 +66,24 @@ def conv1d_causal(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Te
     y = F.conv1d(xt, kernel.permute(2, 1, 0).to(x.dtype),
                  None if bias is None else bias.to(x.dtype),
                  stride=stride, groups=groups)
+    return y.transpose(1, 2)
+
+
+def convtr1d_causal(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
+                    *, stride: int, groups: int = 1) -> torch.Tensor:
+    """x: [B, T, Cin]; kernel: flipped WIO [k, in/g, out] (prepare_convtr_kernel).
+    Returns [B, T*stride, Cout]: the full (T-1)*stride + k outputs, right-
+    trimmed by k - stride. Oracle variant: the model's transposed convs go
+    through convtr1d_2s; this input-dilated form is the independent
+    formulation the tests hold it to."""
+    B, T, Cin = x.shape
+    k = kernel.shape[0]
+    dilated = x.new_zeros(B, Cin, (T - 1) * stride + 1)
+    dilated[:, :, ::stride] = x.transpose(1, 2)
+    y = F.conv1d(F.pad(dilated, (k - 1, k - 1)), kernel.permute(2, 1, 0).to(x.dtype),
+                 groups=groups)[:, :, : T * stride]
+    if bias is not None:
+        y = y + bias.to(x.dtype)[:, None]
     return y.transpose(1, 2)
 
 

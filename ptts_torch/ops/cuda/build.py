@@ -2,10 +2,12 @@
 
 ``nvcc`` compiles ``ptts_torch/csrc/*.cu`` for sm_90a into one shared
 library with a plain C interface (no PyTorch headers, so the build takes
-seconds). The library lands in ``ptts_torch/_build/`` under a name keyed by a
-hash of the sources and flags, so a changed source is always rebuilt and an
-unchanged one never is; nvcc's report (registers, shared memory and spills
-per kernel, from ``-Xptxas -v``) is kept beside it as ``<library>.log``.
+seconds). The library lands in the build directory of utils/compile_cache
+(default ``ptts_torch/_build/``; ``PTTS_COMPILE_CACHE`` moves it) under a
+name keyed by a hash of the sources and flags, so a changed source is always
+rebuilt and an unchanged one never is; nvcc's report (registers, shared
+memory and spills per kernel, from ``-Xptxas -v``) is kept beside it as
+``<library>.log``.
 """
 
 from __future__ import annotations
@@ -18,9 +20,10 @@ import subprocess
 import threading
 from pathlib import Path
 
+from ...utils.compile_cache import build_dir
+
 _PKG = Path(__file__).resolve().parents[2]
 SOURCES = (_PKG / "csrc" / "fused_attention.cu",)
-BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,10 +48,10 @@ def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in SOURCES:
         h.update(src.read_bytes())
-    so = BUILD_DIR / f"libptts_torch_kernels_{h.hexdigest()[:16]}.so"
+    so = build_dir() / f"libptts_torch_kernels_{h.hexdigest()[:16]}.so"
     if so.is_file():
         return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so.parent.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)

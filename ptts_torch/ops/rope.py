@@ -44,10 +44,10 @@ def rope_head_permutation(head_dim: int) -> np.ndarray:
     return np.concatenate([np.arange(0, head_dim, 2), np.arange(1, head_dim, 2)])
 
 
-def permute_qk_rows_for_rope(in_proj: np.ndarray, num_heads: int,
-                             head_dim: int) -> np.ndarray:
+def permute_qk_rows_for_rope(in_proj, num_heads: int, head_dim: int):
     """Reorder the Q and K output rows of a fused [..., 3d, d] in_proj into
-    the halves layout; V rows are untouched."""
+    the halves layout; V rows are untouched. Takes a numpy array or a torch
+    CPU tensor (a bf16 host load) and returns a new one of the same kind."""
     d = num_heads * head_dim
     perm = rope_head_permutation(head_dim)
     idx = np.arange(3 * d)
@@ -55,7 +55,34 @@ def permute_qk_rows_for_rope(in_proj: np.ndarray, num_heads: int,
         for h in range(num_heads):
             base = blk * d + h * head_dim
             idx[base : base + head_dim] = base + perm
+    if isinstance(in_proj, torch.Tensor):
+        return in_proj[..., torch.from_numpy(idx), :]
     return np.asarray(in_proj)[..., idx, :]
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate interleaved pairs of the last axis, (x0, x1) -> (x0*c - x1*s,
+    x0*s + x1*c), in f32 (cos/sin are f32); returns the input dtype.
+
+    Oracle variant (with rope_rotate), as in the JAX package: the model
+    permutes the Q/K rows at load and rotates contiguous halves; the tests
+    hold the two formulations against each other."""
+    shape = x.shape
+    xp = x.reshape(*shape[:-1], shape[-1] // 2, 2)
+    x0, x1 = xp[..., 0], xp[..., 1]
+    r0 = x0 * cos - x1 * sin
+    r1 = x0 * sin + x1 * cos
+    return torch.stack([r0, r1], dim=-1).reshape(shape).to(x.dtype)
+
+
+def rope_rotate(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
+                max_period: float = 10000.0):
+    """RoPE on interleaved-pair q, k: [..., T, H, D]; positions broadcast to
+    [..., T]. Oracle variant (see apply_rope)."""
+    cos, sin = rope_cos_sin(positions, q.shape[-1], max_period)
+    cos = cos[..., None, :]
+    sin = sin[..., None, :]
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin)
 
 
 def apply_rope_halves(x: torch.Tensor, cos: torch.Tensor,

@@ -246,13 +246,14 @@ def _select_free_rows(done: torch.Tensor, slot_mask: torch.Tensor, n_valid: int,
 
 def _admit_core(w, cache: flowlm.KVCache, x_all, eos_step, done, frame_idx, mimi_state,
                 time_embs, noise_tab, params, slot_ids, prefix, lengths, te_rows, noise_rows,
-                new_params, cfg: FlowLMConfig) -> None:
-    """Shared admission body: prefill n prompts (B1 kernel), then write each
-    one's state and params into pool row slot_ids[j], in place. The Mimi
-    ring K/V and the shared ring cursor ``wc`` stay as they are: kpos = -1
-    masks every ring slot of a reused row until its own chunks land."""
+                new_params, cfg: FlowLMConfig, attn_impl: str = "auto") -> None:
+    """Shared admission body: prefill n prompts (B1 kernel, or its plain
+    version with ``attn_impl="plain"``), then write each one's state and
+    params into pool row slot_ids[j], in place. The Mimi ring K/V and the
+    shared ring cursor ``wc`` stay as they are: kpos = -1 masks every ring
+    slot of a reused row until its own chunks land."""
     n, T0, _ = prefix.shape
-    k_new, v_new, last = flowlm.prefill_kv(w, prefix, lengths, cfg)
+    k_new, v_new, last = flowlm.prefill_kv(w, prefix, lengths, cfg, attn_impl)
     rows = slot_ids.long()
     cache.k[:, :, :T0].index_copy_(1, rows, k_new.to(cache.k.dtype))
     cache.v[:, :, :T0].index_copy_(1, rows, v_new.to(cache.v.dtype))
@@ -292,7 +293,7 @@ def admit_slots(w, cache: flowlm.KVCache, x_all, eos_step, done, frame_idx, mimi
                 noise_meta: Optional[torch.Tensor] = None,   # [2, n] f32 (std, clamp)
                 device_noise: bool = False, spec_select: bool = False,
                 n_valid: int = 0, slot_mask: Optional[torch.Tensor] = None,
-                trash_row: int = 0) -> torch.Tensor:
+                trash_row: int = 0, attn_impl: str = "auto") -> torch.Tensor:
     """Prefill n new prompts and write their state into the pool rows.
 
     New prompts' K/V go to prefix columns [0, T0); their decode region
@@ -305,7 +306,8 @@ def admit_slots(w, cache: flowlm.KVCache, x_all, eos_step, done, frame_idx, mimi
         noise_rows = _device_noise_rows(noise_seed, noise_meta, new_params[3],
                                         noise_tab.shape[1], noise_tab.shape[2], noise_tab.dtype)
     _admit_core(w, cache, x_all, eos_step, done, frame_idx, mimi_state, time_embs, noise_tab,
-                params, slot_ids, prefix, lengths, te_rows, noise_rows, new_params, cfg)
+                params, slot_ids, prefix, lengths, te_rows, noise_rows, new_params, cfg,
+                attn_impl)
     return slot_ids
 
 
@@ -325,7 +327,7 @@ def admit_slots_ids(w, cache: flowlm.KVCache, x_all, eos_step, done, frame_idx, 
                     noise_meta: Optional[torch.Tensor] = None,
                     device_noise: bool = False, spec_select: bool = False,
                     n_valid: int = 0, slot_mask: Optional[torch.Tensor] = None,
-                    trash_row: int = 0) -> torch.Tensor:
+                    trash_row: int = 0, attn_impl: str = "auto") -> torch.Tensor:
     """Admission from TOKEN IDS: the prompt matrix is built on the device
     with engine._build_prefix's layout (voice-cond frames, text-embedding
     rows, projected BOS), so an admit group uploads ids and bank indices
@@ -362,7 +364,8 @@ def admit_slots_ids(w, cache: flowlm.KVCache, x_all, eos_step, done, frame_idx, 
         noise_rows = _device_noise_rows(noise_seed, noise_meta, new_params[3],
                                         noise_tab.shape[1], noise_tab.shape[2], noise_tab.dtype)
     _admit_core(w, cache, x_all, eos_step, done, frame_idx, mimi_state, time_embs, noise_tab,
-                params, slot_ids, prefix, lengths, te_rows, noise_rows, new_params, cfg)
+                params, slot_ids, prefix, lengths, te_rows, noise_rows, new_params, cfg,
+                attn_impl)
     return slot_ids
 
 
@@ -429,10 +432,11 @@ class ContinuousBatcher:
     decisions sync-free; admissions landing while a frame is in flight are
     sequence-tracked so the stale frame cannot clobber a new slot's liveness.
 
-    The port has one decode attention, the masked einsum over
-    KVCache.valid_mask, which is exact across a ring wrap, so there is no
-    decode-implementation switch to refuse (the JAX batcher refuses its
-    opt-in 'blocked' decode)."""
+    Admission prefills with the engine's resolved ``prefill_impl`` on every
+    shard, and every step passes the engine's ``flags`` on. The decode ring
+    wraps, so an engine whose flags choose the "blocked" decode attention
+    (which reads [start, cursor] as one span) is refused at construction,
+    as in the JAX batcher."""
 
     @torch.inference_mode()
     def __init__(self, engine, slots: int = 32, max_len: int = 512,
@@ -513,6 +517,13 @@ class ContinuousBatcher:
                 f"noise_budget={self.noise_budget} exceeds the decode ring "
                 f"({max_len - prefix_budget} columns): a request could "
                 f"outlive its own KV columns; raise max_len")
+        # the opt-in 'blocked' decode attention reads [start, cursor] as a
+        # contiguous span: wrong once the ring wraps (flowlm.KVCache)
+        if engine.flags.decode_impl == "blocked":
+            raise api.PttsError(
+                "PTTS_DECODE_IMPL=blocked assumes a non-wrapping KV cache "
+                "and cannot serve the continuous batcher's decode ring; "
+                "use 'auto' or 'einsum'")
 
         self._te_cache: Dict[int, np.ndarray] = {}  # num_steps -> padded row
         self._pinned = _PinnedPool(self._on_card)
@@ -1092,7 +1103,7 @@ class ContinuousBatcher:
             shard.fw, shard.cache, shard.x, shard.eos_step, shard.done, shard.frame_idx,
             shard.mimi_state, shard.time_embs, shard.noise_tab, shard.params_dev,
             up["slot_ids"], up["prefix"].to(self.engine.dtype), up["lengths"], up["te_rows"],
-            new_params=up["new_params"], cfg=self.cfg,
+            new_params=up["new_params"], cfg=self.cfg, attn_impl=self.engine.prefill_impl,
             **self._admit_kwargs(up, seeds, len(group), shard, spec))
         if spec:
             self._push_receipt(rows, group, shard)
@@ -1114,7 +1125,7 @@ class ContinuousBatcher:
             shard.mimi_state, shard.time_embs, shard.noise_tab, shard.params_dev,
             up["slot_ids"], up["ids"], up["n_tokens"], up["cond_idx"], shard.cond_bank,
             shard.cond_len, up["te_rows"], new_params=up["new_params"],
-            prefix_budget=self.prefix_budget, cfg=self.cfg,
+            prefix_budget=self.prefix_budget, cfg=self.cfg, attn_impl=self.engine.prefill_impl,
             **self._admit_kwargs(up, seeds, len(group), shard, spec))
         if spec:
             self._push_receipt(rows, group, shard)
@@ -1151,7 +1162,7 @@ class ContinuousBatcher:
                 sh.fw, sh.mw, sh.cache, sh.mimi_state, sh.x, sh.noise_tab, sh.time_embs,
                 sh.frame_idx, sh.eos_step, sh.done, self.cfg, mcfg, True, eos_threshold,
                 eos_min_frames, eos_after, max_frames, num_steps, emit_i16=True,
-                pack_flags=self.pack_flags)
+                pack_flags=self.pack_flags, flags=self.engine.flags)
             sh.frame_idx = sh.frame_idx + 1
             wd = was_done_dev  # [B]: a chunk is live iff not done pre-step
         else:
@@ -1160,7 +1171,7 @@ class ContinuousBatcher:
                 sh.fw, sh.mw, sh.cache, sh.mimi_state, sh.x, sh.noise_tab, sh.time_embs,
                 sh.frame_idx, sh.eos_step, sh.done, self.cfg, mcfg, True, eos_threshold,
                 eos_min_frames, eos_after, max_frames, num_steps, k=k, emit_i16=True,
-                pack_flags=self.pack_flags)
+                pack_flags=self.pack_flags, flags=self.engine.flags)
             # pcm [k, B, S(+2)]; wd [k, B] per-frame pre-step done
         if not self.collect_pcm:
             return self._readback(_combine_flags(wd, sh.done))

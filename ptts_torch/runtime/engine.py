@@ -1,15 +1,20 @@
 """TTSEngine: device-resident weights + the offline text -> PCM pipeline
 (port of ptts_tpu/runtime/engine.py).
 
-Weights load from the safetensors mmap to the device once, at construction.
-Prompt assembly stays on the host in numpy; prefill, the per-frame loop and
-Mimi run on the engine's device. Shape bucketing (prefix length, frame
-count) is kept as in the JAX engine, so both packages compute on the same
-padded shapes and draw the same host noise (rng.frame_noise).
+Weights load from the safetensors mmap to the device once, at construction,
+through one packed copy (utils/packing); a bf16 engine reads FlowLM straight
+to bf16 (zero-copy views of BF16-stored tensors). Prompt assembly stays on
+the host in numpy; prefill, the per-frame loop and Mimi run on the engine's
+device. Shape bucketing (prefix length, frame count) is kept as in the JAX
+engine, so both packages compute on the same padded shapes and draw the
+same host noise (rng.frame_noise).
 
-Unlike the JAX engine there is no degradation from a failing kernel to its
-plain version: on a CUDA device the kernels run or the call raises, and an
-engine asked for ``cuda`` never runs on the CPU.
+The kernel switches (config.KernelFlags, from the environment by
+flags_from_env) are resolved once at construction into ``prefill_impl`` and
+``window_impl``. Unlike the JAX engine there is no degradation from a
+failing kernel to its plain version: on a CUDA device the chosen kernels run
+or the call raises, the plain versions run only where a switch asked for
+them, and an engine asked for ``cuda`` never runs on the CPU.
 """
 
 from __future__ import annotations
@@ -22,13 +27,39 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import api, convert
+from .. import api
+from ..config import KernelFlags
 from ..io.wav import Audio
 from ..models import flowlm, mimi
 from ..rng import frame_noise
 from ..text import estimate_frames, prepare_text
 from ..utils import sanitize
+from ..utils.compile_cache import enable_persistent_cache
 from ..utils.timing import GLOBAL_STATS, span
+
+
+def flags_from_env() -> KernelFlags:
+    """The kernel switches from the environment, the variables of the JAX
+    package's flags_from_env: PTTS_PALLAS_PREFILL / PTTS_PALLAS_WINDOW (0 ->
+    the plain version, 1 -> the kernel, unset -> auto), PTTS_DECODE_IMPL
+    (auto, einsum, blocked), PTTS_LAYER_IMPL (auto, scan, unroll) and
+    PTTS_VALIDATE=1 (run both decode attentions, print the maxdiff)."""
+    kernel = {"0": "plain", "1": "kernel"}
+    return KernelFlags(
+        decode_impl=os.environ.get("PTTS_DECODE_IMPL", "auto"),
+        window_impl=kernel.get(os.environ.get("PTTS_PALLAS_WINDOW", "auto"), "auto"),
+        prefill_impl=kernel.get(os.environ.get("PTTS_PALLAS_PREFILL", "auto"), "auto"),
+        layer_impl=os.environ.get("PTTS_LAYER_IMPL", "auto"),
+        validate=os.environ.get("PTTS_VALIDATE", "0") == "1",
+    )
+
+
+def _host_f32(a) -> np.ndarray:
+    """A host weight (f32 numpy, or a bf16 torch tensor of a bf16 load) as
+    f32 numpy; a bf16 weight keeps its bf16 value, as in the JAX engine."""
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(a, np.float32)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -50,15 +81,25 @@ class GenerateOutput:
 
 class TTSEngine:
     def __init__(self, ctx, dtype: Optional[torch.dtype] = None,
-                 prefix_bucket: int = 64, frame_bucket: int = 64):
+                 prefix_bucket: int = 64, frame_bucket: int = 64,
+                 flags: Optional[KernelFlags] = None):
         """``ctx`` is a ptts_torch.api.Context; the engine runs on
         ``ctx.device``. dtype: float32 (default, the parity mode) or
-        bfloat16 (PTTS_DTYPE=bf16)."""
+        bfloat16 (PTTS_DTYPE=bf16). flags: the kernel switches (default
+        flags_from_env()); a "kernel" switch on a CPU engine raises
+        ValueError. ``weights_s`` holds the seconds of the weight load:
+        checkpoint read, host pack and the copy to the device."""
         if dtype is None:
             dtype = torch.bfloat16 if os.environ.get("PTTS_DTYPE") == "bf16" else torch.float32
         self.device = torch.device(ctx.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("engine asked for a CUDA device, but CUDA is not available")
+        # the build directory of the kernel and host libraries
+        # (PTTS_COMPILE_CACHE; utils/compile_cache)
+        enable_persistent_cache()
+        self.flags = flags if flags is not None else flags_from_env()
+        self.prefill_impl = flowlm.resolve_prefill_impl(self.flags.prefill_impl, self.device)
+        self.window_impl = mimi.resolve_window_impl(self.flags.window_impl, self.device)
         if dtype == torch.float32:
             # f32 parity: cuDNN would otherwise run the SEANet convs in TF32
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -70,17 +111,26 @@ class TTSEngine:
         self.prefix_bucket = prefix_bucket
         self.frame_bucket = frame_bucket
 
-        fw_host = flowlm.load_weights(ctx.weights, self.flowlm_cfg)
+        # a bf16 engine reads FlowLM (most of the parameters) straight to
+        # bf16; Mimi keeps the f32 load (host math in its conv preparation)
+        t0 = time.perf_counter()
+        if dtype == torch.bfloat16:
+            fw_host = flowlm.load_weights(ctx.weights, self.flowlm_cfg, dtype=torch.bfloat16)
+        else:
+            fw_host = flowlm.load_weights(ctx.weights, self.flowlm_cfg)
         mw_host = mimi.load_weights(ctx.weights, self.mimi_cfg)
+        load = {"read": time.perf_counter() - t0, "pack": 0.0, "copy": 0.0}
         # PTTS_SANITIZE=1: a corrupt checkpoint fails here, naming the tensor
         sanitize.check_tree("load_weights(flowlm)", fw_host)
         sanitize.check_tree("load_weights(mimi)", mw_host)
-        # host copies for prefix assembly (off the device path), always f32
-        self._embed = np.asarray(fw_host["embed"], np.float32)
-        self._input_linear = np.asarray(fw_host["input_linear"], np.float32)
-        self._bos_emb = np.asarray(fw_host["bos_emb"], np.float32)
-        self.fw = convert.flowlm_weights(fw_host, self.flowlm_cfg, dtype, self.device)
-        self.mw = convert.mimi_weights(mw_host, self.mimi_cfg, dtype, self.device)
+        # host copies for prefix assembly (off the device path), f32 (bf16
+        # values in a bf16 engine, as in the JAX engine)
+        self._embed = _host_f32(fw_host["embed"])
+        self._input_linear = _host_f32(fw_host["input_linear"])
+        self._bos_emb = _host_f32(fw_host["bos_emb"])
+        self.fw = flowlm.to_device(fw_host, dtype, self.flowlm_cfg, self.device, load)
+        self.mw = mimi.to_device(mw_host, dtype, self.mimi_cfg, self.device, load)
+        self.weights_s = load
         self._voice_cache: dict = {}
 
     # -- prompt assembly -----------------------------------------------------
@@ -148,7 +198,8 @@ class TTSEngine:
             noise = noise[:, :frames]
 
         cache, x0 = flowlm.prefill_init(self.fw, self._tensor(padded),
-                                        self._tensor(lengths, torch.int32), cfg, T0 + frames)
+                                        self._tensor(lengths, torch.int32), cfg, T0 + frames,
+                                        self.prefill_impl)
         budgets = np.broadcast_to(
             np.asarray(frames_each if frames_each is not None else max_frames, np.int32), (B,))
         res = flowlm.generate_latents_while(
@@ -160,6 +211,7 @@ class TTSEngine:
             eos_after=self._tensor(eos_after if eos_after is not None else params.eos_after,
                                    torch.int32),
             max_frames_per_stream=self._tensor(budgets, torch.int32),
+            flags=self.flags,
         )
         # cap frames_used at the caller's true max (bucketing may exceed it)
         capped = torch.clamp(res.frames_used, max=max_frames)
@@ -170,7 +222,8 @@ class TTSEngine:
     @torch.inference_mode()
     def decode_audio_batch(self, scaled_latents: torch.Tensor) -> np.ndarray:
         """[B, F, latent_dim] scaled latents -> PCM [B, F * frame_samples] (f32)."""
-        pcm = mimi.decode(self.mw, scaled_latents, self.mimi_cfg).float().cpu().numpy()
+        pcm = mimi.decode(self.mw, scaled_latents, self.mimi_cfg,
+                          self.window_impl).float().cpu().numpy()
         sanitize.check_finite("decode_audio_batch", pcm, names=("pcm",))
         return pcm
 

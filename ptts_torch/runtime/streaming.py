@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from .. import api
-from ..config import FlowLMConfig
+from ..config import FlowLMConfig, KernelFlags
 from ..models import flowlm, mimi_stream
 from ..rng import frame_noise
 from ..text import estimate_frames, prepare_text
@@ -36,17 +36,19 @@ def flow_frame_step(w, cache: flowlm.KVCache, x: torch.Tensor, noise: torch.Tens
                     done: torch.Tensor, cfg: FlowLMConfig, eos_enabled: bool,
                     eos_threshold, eos_min_frames, eos_after: torch.Tensor,
                     max_frames: Optional[torch.Tensor] = None,
-                    num_steps: Optional[torch.Tensor] = None):
+                    num_steps: Optional[torch.Tensor] = None,
+                    flags: KernelFlags = flowlm.DEFAULT_FLAGS):
     """One generation frame: out_norm -> EOS -> LSD -> scale_latents ->
     input_linear -> decode_step. ``time_embs`` is a shared [S, fd] table or
     per-stream [B, S_max, fd] tables with ``num_steps`` [B]; ``frame_idx``
-    is a host int or [B]; the threshold and min-frames are scalars or [B].
+    is a host int or [B]; the threshold and min-frames are scalars or [B];
+    ``flags`` chooses the decode attention (flowlm.decode_step).
     Returns (cache, x, scaled latent, eos, eos_step, done)."""
     cache, x, latent, eos, eos_step, done, _, _ = flowlm.frame_step(
         w, cache, x, noise, time_embs, frame_idx, eos_step, done, cfg,
         eos_enabled=eos_enabled, eos_threshold=eos_threshold,
         eos_min_frames=eos_min_frames, eos_after=eos_after, max_frames=max_frames,
-        num_steps=num_steps)
+        num_steps=num_steps, flags=flags)
     return cache, x, flowlm.scale_latents(w, latent), eos, eos_step, done
 
 
@@ -82,7 +84,7 @@ def fused_stream_step(fw, mw, cache: flowlm.KVCache, mimi_state, x: torch.Tensor
                       eos_enabled: bool, eos_threshold, eos_min_frames,
                       eos_after: torch.Tensor, max_frames: Optional[torch.Tensor] = None,
                       num_steps: Optional[torch.Tensor] = None, emit_i16: bool = False,
-                      pack_flags: bool = False):
+                      pack_flags: bool = False, flags: KernelFlags = flowlm.DEFAULT_FLAGS):
     """One serving frame: flow_frame_step, then one streaming-Mimi chunk.
 
     ``noise`` is a [B, latent] row or the whole [B, F, latent] table, whose
@@ -95,7 +97,7 @@ def fused_stream_step(fw, mw, cache: flowlm.KVCache, mimi_state, x: torch.Tensor
     was_done = done
     cache, x, scaled, eos, eos_step, done = flow_frame_step(
         fw, cache, x, noise, time_embs, frame_idx, eos_step, done, cfg, eos_enabled,
-        eos_threshold, eos_min_frames, eos_after, max_frames, num_steps)
+        eos_threshold, eos_min_frames, eos_after, max_frames, num_steps, flags)
     mimi_state, pcm = mimi_stream.decode_stream(mw, mimi_state, scaled[:, None, :], mcfg)
     if emit_i16:
         pcm = quantize_i16_device(pcm)
@@ -110,7 +112,7 @@ def fused_stream_steps(fw, mw, cache: flowlm.KVCache, mimi_state, x: torch.Tenso
                        eos_enabled: bool, eos_threshold, eos_min_frames,
                        eos_after: torch.Tensor, max_frames: torch.Tensor,
                        num_steps: Optional[torch.Tensor], k: int, emit_i16: bool = True,
-                       pack_flags: bool = False):
+                       pack_flags: bool = False, flags: KernelFlags = flowlm.DEFAULT_FLAGS):
     """k serving frames: k FlowLM frames, then ONE decode_stream over all k
     latents (Mimi does not feed back into FlowLM, and a k-frame chunk equals
     k one-frame chunks). Returns (cache, mimi_state, x, pcm [k, B, S], eos
@@ -122,7 +124,7 @@ def fused_stream_steps(fw, mw, cache: flowlm.KVCache, mimi_state, x: torch.Tenso
         cache, x, scaled, eos, eos_step, done = flow_frame_step(
             fw, cache, x, _noise_rows(noise_tab, frame_idx), time_embs, frame_idx,
             eos_step, done, cfg, eos_enabled, eos_threshold, eos_min_frames, eos_after,
-            max_frames, num_steps)
+            max_frames, num_steps, flags)
         scaled_k.append(scaled)
         eos_k.append(eos)
         frame_idx = frame_idx + 1
@@ -196,7 +198,8 @@ class StreamingSession:
         ]))
         cache = flowlm.make_cache(cfg, B, T0 + max_frames, engine.dtype, engine.device)
         self.cache, self.x = flowlm.prefill(engine.fw, cache, engine._tensor(padded),
-                                            engine._tensor(lengths, torch.int32), cfg)
+                                            engine._tensor(lengths, torch.int32), cfg,
+                                            engine.prefill_impl)
         self.time_embs = flowlm.lsd_time_embeds(engine.fw, params.num_steps, cfg)
         self.mimi_state = mimi_stream.init_state(engine.mw, engine.mimi_cfg, B, engine.dtype)
         self.eos_step = torch.full((B,), -1, dtype=torch.int32, device=engine.device)
@@ -254,7 +257,7 @@ class StreamingSession:
             self.time_embs, self.frame, self.eos_step, self.done, self.cfg,
             engine.mimi_cfg, bool(self.params.eos_enabled), self.params.eos_threshold,
             self.params.eos_min_frames, self.eos_after, self.frames_each,
-            emit_i16=True, pack_flags=True)
+            emit_i16=True, pack_flags=True, flags=engine.flags)
         slot = self.frame % len(self._slots)
         pcm_host, eos_host, ready = self._slots[slot]
         pcm_host.copy_(pcm, non_blocking=True)

@@ -314,19 +314,23 @@ def test_admission_writes_in_place(ctx):
 
 
 def test_admission_launches_b1_at_the_admit_shape(ctx, monkeypatch):
-    """Every admit group prefills through causal_attention_qkv with
-    [admit_chunk, prefix_budget, 3 d] and contiguous [admit_chunk] int32
-    lengths. A padded entry has length 1 on the host-prefix path and, on the
-    ids path, an empty prompt after bank row 0's voice (its cond frames + 1)."""
+    """Every admit group prefills through B1's path (causal_attention_qkv
+    on the card; its plain version, which the CPU engine's prefill_impl
+    resolves to, here) with [admit_chunk, prefix_budget, 3 d] and contiguous
+    [admit_chunk] int32 lengths. A padded entry has length 1 on the
+    host-prefix path and, on the ids path, an empty prompt after bank row
+    0's voice (its cond frames + 1)."""
     calls = []
-    real = tfl.causal_attention_qkv
+    name = {"kernel": "causal_attention_qkv",
+            "plain": "causal_attention_qkv_plain"}[ctx.engine.prefill_impl]
+    real = getattr(tfl, name)
 
     def spy(qkv, lengths, **kw):
         calls.append((tuple(qkv.shape), lengths.dtype, lengths.is_contiguous(),
                       lengths.tolist()))
         return real(qkv, lengths, **kw)
 
-    monkeypatch.setattr(tfl, "causal_attention_qkv", spy)
+    monkeypatch.setattr(tfl, name, spy)
     d = TINY_FLOWLM.d_model
     n_cond = len(ctx.engine._voice_cond(None)[0])
     for voice_cap, pad in ((8, n_cond + 1), (0, 1)):  # ids path, host prefix path

@@ -330,3 +330,77 @@ def test_dryrun_multichip_on_card(dev):
     dryrun.dryrun_multichip(4, "cuda")
     assert fa.causal_attention_qkv.launches > before[0]
     assert fa.window_attention_qkv.launches > before[1]
+
+
+def small_model(tmp_path):
+    """A small model with the kernels' head dim (as test_engine_on_card_matches_cpu)."""
+    fc = FlowLMConfig(vocab=60, text_dim=128, d_model=128, num_heads=2, head_dim=64,
+                      num_layers=2, hidden=256, latent_dim=8, flow_dim=32, flow_depth=2,
+                      time_freqs=8)
+    mc = MimiConfig(latent_dim=8, d_model=128, num_heads=2, head_dim=64, num_layers=1,
+                    hidden=256, n_filters=4, ratios=(3, 2))
+    return synth.write_model_dir(str(tmp_path), fc, mc, seed=2, scale=0.1), fc, mc
+
+
+def test_plain_switches_launch_no_kernel(dev, tmp_path):
+    """chip_smoke phase 10 (a), small: an engine with both switches on
+    "plain" launches neither kernel and stays within 1e-3 of the kernel
+    engine (latents and PCM)."""
+    from ptts_torch.config import KernelFlags
+    from ptts_torch.runtime.engine import TTSEngine
+
+    path, fc, mc = small_model(tmp_path)
+    ctx = api.load_dir(path, flowlm_cfg=fc, mimi_cfg=mc, device="cuda")
+    p = api.Params(seed=4, num_frames=5, eos_enabled=False)
+    want = ctx.engine.generate_full("Hello world!", params=p)
+    plain = TTSEngine(ctx, flags=KernelFlags(prefill_impl="plain", window_impl="plain"))
+    assert (plain.prefill_impl, plain.window_impl) == ("plain", "plain")
+    before = (fa.causal_attention_qkv.launches, fa.window_attention_qkv.launches)
+    got = plain.generate_full("Hello world!", params=p)
+    assert (fa.causal_attention_qkv.launches, fa.window_attention_qkv.launches) == before
+    assert rel(torch.from_numpy(got.latents), torch.from_numpy(want.latents)) <= 1e-3
+    assert rel(torch.from_numpy(got.audio.samples), torch.from_numpy(want.audio.samples)) <= 1e-3
+
+
+def test_blocked_decode_on_card_matches_einsum(dev, tmp_path):
+    """chip_smoke phase 10 (b), small: decode_impl="blocked" against the
+    masked einsum on the card, latents within 1e-3 of max."""
+    import dataclasses
+
+    path, fc, mc = small_model(tmp_path)
+    engine = api.load_dir(path, flowlm_cfg=fc, mimi_cfg=mc, device="cuda").engine
+    p = api.Params(seed=4, num_frames=5, eos_enabled=False)
+    want = engine.generate_full("Hello world!", params=p, decode_audio=False)
+    engine.flags = dataclasses.replace(engine.flags, decode_impl="blocked")
+    got = engine.generate_full("Hello world!", params=p, decode_audio=False)
+    assert rel(torch.from_numpy(got.latents), torch.from_numpy(want.latents)) <= 1e-3
+
+
+def test_packed_bf16_load_on_card(dev, tmp_path):
+    """chip_smoke phase 11 (a), small: the bf16 engine's weights on the card
+    are bit-equal to the same trees packed on the CPU, every leaf at a
+    256-byte-aligned address; bf16 generation launches B1 and B2 in bf16."""
+    from ptts_torch.models import flowlm, mimi
+    from ptts_torch.runtime.engine import TTSEngine
+    from ptts_torch.utils.packing import ALIGN
+
+    path, fc, mc = small_model(tmp_path)
+    ctx = api.load_dir(path, flowlm_cfg=fc, mimi_cfg=mc, device="cuda")
+    engine = TTSEngine(ctx, dtype=torch.bfloat16)
+    assert set(engine.weights_s) == {"read", "pack", "copy"}
+    host = (flowlm.to_device(flowlm.load_weights(ctx.weights, fc, dtype=torch.bfloat16),
+                             torch.bfloat16, fc),
+            mimi.to_device(mimi.load_weights(ctx.weights, mc), torch.bfloat16, mc))
+    for dev_tree, cpu_tree in zip((engine.fw, engine.mw), host):
+        pairs = list(zip(dev_tree.named_buffers(), cpu_tree.named_buffers()))
+        assert pairs
+        for (name, d), (_, c) in pairs:
+            assert d.is_cuda and d.dtype == torch.bfloat16 and d.data_ptr() % ALIGN == 0, name
+            assert torch.equal(d.cpu().view(torch.int16), c.view(torch.int16)), name
+    fa.causal_attention_qkv.shapes.clear()
+    fa.window_attention_qkv.shapes.clear()
+    out = engine.generate_full("Hello world!", params=api.Params(seed=4, num_frames=3,
+                                                                eos_enabled=False))
+    assert np.isfinite(out.audio.samples).all() and out.frames_used == 3
+    assert {d for d, _, _ in fa.causal_attention_qkv.shapes} == {"bf16"}
+    assert {d for d, _, _ in fa.window_attention_qkv.shapes} == {"bf16"}

@@ -1,7 +1,7 @@
 """The port's own host layer (ptts_torch/{config,text,rng,verify,api}.py,
 io/, tokenizer/, native/, utils/timing.py) against the JAX package's
 originals on the same inputs, and the isolation of the port: no module of
-ptts_torch and no line of chip_smoke.py imports ptts_tpu or jax.
+ptts_torch and no line of chip_smoke.py imports ptts_tpu, jax or ml_dtypes.
 
 Everything here is host code: the gates are equality (bit-equal arrays,
 identical ids, reports and strings)."""
@@ -278,8 +278,9 @@ def _port_sources():
 
 
 def test_no_port_source_imports_the_jax_package():
-    """AST scan: no ``import ptts_tpu``/``from ptts_tpu`` (nor jax) anywhere
-    in ptts_torch/**/*.py or chip_smoke.py, at any depth."""
+    """AST scan: no ``import ptts_tpu``/``from ptts_tpu`` (nor jax, nor
+    ml_dtypes, which the machine with the card lacks) anywhere in
+    ptts_torch/**/*.py or chip_smoke.py, at any depth."""
     found = []
     sources = list(_port_sources())
     assert len(sources) > 30
@@ -293,15 +294,15 @@ def test_no_port_source_imports_the_jax_package():
             else:
                 continue
             for name in names:
-                if name.split(".")[0] in ("ptts_tpu", "jax", "jaxlib"):
+                if name.split(".")[0] in ("ptts_tpu", "jax", "jaxlib", "ml_dtypes"):
                     found.append(f"{os.path.relpath(path, REPO)}:{node.lineno} {name}")
     assert not found, found
 
 
 def test_fresh_process_imports_every_port_module_without_the_jax_package():
     """A fresh interpreter imports every ptts_torch module
-    (pkgutil.walk_packages) and chip_smoke.py: neither ptts_tpu* nor jax*
-    ends up in sys.modules."""
+    (pkgutil.walk_packages) and chip_smoke.py: no ptts_tpu*, jax* or
+    ml_dtypes* module ends up in sys.modules."""
     code = f"""
 import importlib, pkgutil, sys
 sys.path.insert(0, {REPO!r})
@@ -310,7 +311,7 @@ names = [m.name for m in pkgutil.walk_packages(ptts_torch.__path__, "ptts_torch.
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-bad = sorted(m for m in sys.modules if m.startswith(("ptts_tpu", "jax")))
+bad = sorted(m for m in sys.modules if m.startswith(("ptts_tpu", "jax", "ml_dtypes")))
 assert not bad, bad
 print(len(names))
 """
