@@ -3,7 +3,10 @@
 
     python3 chip_smoke.py        # from the repository root, on a machine with a card
 
-Phases, in order; any failure raises, exits non-zero and prints no result:
+Phases; any failure raises, exits non-zero and prints no result. They run
+in this order, but for phase 3, which runs last, over every (B, T) at which
+the other phases launched a kernel, and for phase 12 (a), which runs after
+phase 2 while the card's memory is free. Each phase's seconds are printed:
   1. device  -- CUDA must be available; prints nvidia-smi's name and power limit
   2. build   -- nvcc builds the hand-written kernels from ptts_torch/csrc;
                 ptxas registers, shared memory and spills; where the toolkit
@@ -19,7 +22,10 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
                 peaks) and the share device time / bound, the plain
                 version's device time, and library_ms: scaled_dot_product_
                 attention on the rotated [B, H, T, D] q/k/v with the same
-                mask (attention only: no RoPE, no split)
+                mask (attention only: no RoPE, no split). The shapes are
+                B1_CASES and B2_CASES, and every (B, T) that a launch
+                counter of another phase recorded, in this process or in
+                the bench's and its HTTP leg's (each in f32 and bf16)
   4. slice   -- a full-size synthetic checkpoint through ptts_torch.api:
                 generate("Hello world!") and a 4-prompt batch_generate; PCM
                 finite, frames_used * 1920 samples; both kernels launched
@@ -96,20 +102,38 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
                 bf16 rounding past that gate, so it is printed only); (c)
                 printed only: per-chunk wall at B = 1 and 8, closed-loop
                 streams per chip at 64 slots, beside phases 6 and 8's f32
-Launch counts are set to 0 before each of phases 4, 6 and 7 and read after;
-phase 8 sums them over its serving runs alone (B2 must stay at 0 there),
-phase 9 over its sharded serving runs and the dry run alone, phase 10
-over (a)'s plain run and over (b)-(c)'s runs, phase 11 over its bf16 runs
-(the f32 references excluded). The int16
-gates of phases 6 and 8 (c) let a clipping waveform fall back to its f32
-view at 1e-3 of max (the random full-size PCM clips).
-Printed last: {"stream": ...}, {"serve": ...}, {"mesh": ...}, {"flags": ...}
-and {"bf16": ...} lines, then {"kernels": [...]}, then
+ 12. bench   -- (a) one pass of each mode of ptts_torch.bench's offline
+                pipeline at its defaults (B = 256, 50 frames, bf16), in this
+                process: frames_used as the mode sets it, PCM finite and
+                whole, both kernels launched; (b) python -m ptts_torch.bench
+                in a subprocess at a reduced size (batch 16, 16 frames, 1
+                repeat, 64 batcher requests, 64 device-bound slots, 2
+                warm-up steps, HTTP 24 requests from 4 clients): rc 0, one
+                JSON line, every leg's value > 0, no failed leg, no HTTP
+                error, both kernels launched in the bench's process, the
+                device name phase 1's; (c) ptts_torch.tools.bench_streaming
+                --batch 8 --frames 16 --repeats 1 through its main(), in this
+                process: one JSON line, first chunk and per-frame slope > 0,
+                B1 launched
+Launch counts are set to 0 before each of phases 4, 6, 7 and 12 (a) and (c)
+and read after; phase 8 sums them over its serving runs alone (B2 must stay
+at 0 there), phase 9 over its sharded serving runs and the dry run alone,
+phase 10 over (a)'s plain run and over (b)-(c)'s runs, phase 11 over its
+bf16 runs (the f32 references excluded); phase 12 (b) reads the counts
+that the bench's own process and its HTTP leg's report. Every reset first
+keeps the shapes launched since the last one (SEEN): phase 3 reads them.
+The int16 gates of phases 6 and 8 (c) let a clipping waveform fall back to
+its f32 view at 1e-3 of max (the random full-size PCM clips).
+Printed last: {"stream": ...}, {"serve": ...}, {"mesh": ...}, {"flags": ...},
+{"bf16": ...}, {"bench": ...} and {"phase_s": ...} lines, then
+{"kernels": [...]} (each kernel's cases, one for each launched shape in
+each dtype), then
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import io
@@ -128,7 +152,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from ptts_torch import api, cli, dryrun, synth  # noqa: E402
+from ptts_torch import api, bench, cli, dryrun, synth  # noqa: E402
 from ptts_torch.config import KernelFlags  # noqa: E402
 from ptts_torch.io.wav import load_wav, quantize_i16  # noqa: E402
 from ptts_torch.models import flowlm, mimi  # noqa: E402
@@ -141,6 +165,7 @@ from ptts_torch.runtime.batching import ContinuousBatcher, Request  # noqa: E402
 from ptts_torch.runtime.engine import TTSEngine  # noqa: E402
 from ptts_torch.runtime.streaming import StreamingSession  # noqa: E402
 from ptts_torch.utils import packing, profiling  # noqa: E402
+from ptts_torch.tools import bench_streaming  # noqa: E402
 from ptts_torch.utils.timing import GLOBAL_STATS  # noqa: E402
 
 SOURCE = "ptts_torch/csrc/fused_attention.cu"
@@ -165,10 +190,29 @@ def rel_err(got: torch.Tensor, want: torch.Tensor):
     return err, err / max(want.float().abs().max().item(), 1e-30)
 
 
+# every (dtype, B, T) launched on a path, by kernel: reset_launches() adds
+# the shapes since the last reset; phase 3 holds each against the plain version
+SEEN = {name: collections.Counter() for name in KERNELS}
+
+
 def reset_launches() -> None:
     for name in KERNELS:
+        SEEN[name].update(getattr(fa, name).shapes)
         getattr(fa, name).launches = 0
         getattr(fa, name).shapes.clear()
+
+
+def parse_shapes(by_name: dict) -> dict:
+    """{kernel: Counter {(dtype, B, T): launches}} of a read_shapes()-style
+    report ({kernel: {"dtype B=.. T=..": launches}}, as ptts_torch.bench
+    prints it)."""
+    out = {}
+    for name, by_shape in by_name.items():
+        out[name] = collections.Counter()
+        for key, n in by_shape.items():
+            d, b, t = key.split()
+            out[name][(d, int(b[2:]), int(t[2:]))] += n
+    return out
 
 
 def read_launches() -> dict:
@@ -382,14 +426,16 @@ def phase_build() -> None:
 
 def b1_lengths(B: int, T: int) -> list:
     """Ragged lengths of a B1 case: the serving admission pattern at B = 8
-    (a group's padded entries at length 1), else full, half, 1, T - 7."""
+    (a group's padded entries at length 1), else full, half, 1, T - 7 over
+    and over."""
     if B == 8:
         return [T, 1, 1, T // 2 + 3, 1, 17, T - 5, 1]
-    return [T, T // 2 + 3, 1, max(T - 7, 1)][:B]
+    return [(T, T // 2 + 3, 1, max(T - 7, 1))[b % 4] for b in range(B)]
 
 
-# B1 (B, T) and B2 (B, T) of phase 3: every shape the main path gives the
-# kernels (phases 4, 6 and 8 print them) -- B1 at the slice's 64-row prefix
+# B1 (B, T) and B2 (B, T) that phase 3 always holds (every other launched
+# shape joins them from SEEN): the shapes the main path gives the kernels
+# (phases 4, 6 and 8 print them) -- B1 at the slice's 64-row prefix
 # bucket (B = 1 generate, B = 4 batch_generate), the stream start's
 # unrounded prefix (B = 1, T = 14 for "Hello world!"), serving admission's
 # [admit_chunk, prefix_budget] (2 x 128 in phase 8 (a)-(c), 8 x 64 in its
@@ -401,6 +447,45 @@ B1_CASES = ((1, 14), (1, 64), (2, 128), (4, 64), (4, 128), (4, 37), (4, 100), (8
             (8, 128))
 B2_CASES = ((1, 1024), (2, 1024), (2, 800), (4, 256), (2, 1))
 LIBRARY = "attention only (no RoPE, no split)"
+BENCH_BATCH, BENCH_FRAMES = 256, 50   # ptts_torch.bench's defaults
+
+
+def phase_bench_offline(model_dir: str, device="cuda") -> dict:
+    """Phase 12 (a): one pass of each mode of the bench's offline pipeline
+    (ptts_torch.bench.OfflineBench) at its defaults, bf16, on ``model_dir``
+    -- phase 12 (b) runs the bench at a reduced batch, so this holds the
+    default batch's shapes (B1 256 x 64, B2 256 x 800 and the length
+    groups') and memory. Checks each mode's frames_used and that its PCM is
+    finite and whole; the launch counters are set to 0 just before and read
+    just after."""
+    os.environ["PTTS_BENCH_MODEL_DIR"] = model_dir
+    cfg, mcfg = bench.configs()
+    fw, mw = bench.device_weights(torch.bfloat16, torch.device(device), cfg, mcfg)
+    off = bench.OfflineBench(fw, mw, BENCH_BATCH, BENCH_FRAMES, torch.bfloat16, cfg, mcfg)
+    after = off.ragged_after.cpu().numpy()
+    want_used = {"on": np.full(BENCH_BATCH, BENCH_FRAMES), "off": np.full(BENCH_BATCH, 64),
+                 "ragged": after + 1, "ragged_bucketed": np.full(BENCH_BATCH, BENCH_FRAMES)}
+    reset_launches()
+    t0 = time.perf_counter()
+    for mode in off.MODES:
+        pcms, used = off.run(mode)
+        widths = ([BENCH_FRAMES] if mode != "ragged_bucketed" else [w for _, w in off.groups])
+        for pcm, width in zip(pcms, widths):
+            check(pcm.shape[1] == width * FRAME_SAMPLES, f"bench {mode}: PCM {list(pcm.shape)}")
+            check(bool(torch.isfinite(pcm).all()), f"bench {mode}: non-finite PCM")
+        check(np.array_equal(used.cpu().numpy(), want_used[mode]),
+              f"bench {mode}: frames_used {used.cpu().numpy()[:8]}...")
+    sync(device)
+    seconds = time.perf_counter() - t0
+    launches, shapes = read_launches(), read_shapes()
+    for name, count in launches.items():
+        check(count > 0, f"{name} was not launched on the bench's offline path")
+    print(f"bench (a): one pass of each offline mode at B={BENCH_BATCH}, "
+          f"{BENCH_FRAMES} frames, bf16 in {seconds:.2f} s; launches {launches}; by shape "
+          f"{shapes}")
+    del off, fw, mw
+    torch.cuda.empty_cache()
+    return dict(launches=launches, shapes=shapes, seconds=seconds)
 
 
 def kernel_case(name, dtype, B, T, fn, plain, library, bound, errs) -> dict:
@@ -419,16 +504,21 @@ def kernel_case(name, dtype, B, T, fn, plain, library, bound, errs) -> dict:
     return case
 
 
-def phase_kernels() -> dict:
-    """Each kernel against its plain version; its device time, the wrapper's
-    host time, the bound, the plain version's and the library call's times."""
+def phase_kernels(seen: dict) -> dict:
+    """Each kernel against its plain version at B1_CASES and B2_CASES and
+    at every other (B, T) in ``seen`` ({kernel: {(dtype, B, T): launches}}),
+    in f32 and bf16; its device time, the wrapper's host time, the bound,
+    the plain version's and the library call's times."""
+    b1_cases, b2_cases = (
+        cases + tuple(sorted({(b, t) for _, b, t in seen[name]} - set(cases)))
+        for name, cases in zip(KERNELS, (B1_CASES, B2_CASES)))
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     results = {"causal_attention_qkv": [], "window_attention_qkv": []}
     for dtype in (torch.float32, torch.bfloat16):
         tag = "f32" if dtype == torch.float32 else "bf16"
-        for B, T in B1_CASES:
+        for B, T in b1_cases:
             H, D = 16, 64
             qkv = torch.from_numpy(rng.standard_normal((B, T, 3 * H * D)).astype(np.float32))
             qkv = qkv.to(dev, dtype)
@@ -460,7 +550,7 @@ def phase_kernels() -> dict:
             results["causal_attention_qkv"].append(case)
             check(max(rel_a, rel_k) <= GATES[dtype], f"B1 {tag} B={B} T={T}: rel err "
                   f"{max(rel_a, rel_k):.3e} > {GATES[dtype]}")
-        for B, T in B2_CASES:
+        for B, T in b2_cases:
             H, D, ctx = 8, 64, 250
             qkv = torch.from_numpy(rng.standard_normal((B, T, 3 * H * D)).astype(np.float32))
             qkv = qkv.to(dev, dtype)
@@ -1512,6 +1602,94 @@ def phase_bf16(model_dir: str, ctx, stream: dict, serve: dict) -> dict:
                 shapes={"generate_full": shapes, "stream": stream_shapes, "serve": serve_shapes})
 
 
+# phase 12 (b), (c): ptts_torch.bench and bench_streaming at a reduced size
+BENCH_ENV = {"PTTS_BENCH_BATCH": "16", "PTTS_BENCH_FRAMES": "16", "PTTS_BENCH_REPEATS": "1",
+             "PTTS_BENCH_BATCHER_REQS": "64", "PTTS_BENCH_DEVICE_SLOTS": "64",
+             "PTTS_BENCH_WARMUP_STEPS": "2", "PTTS_HTTP_REQS": "24", "PTTS_HTTP_CLIENTS": "4"}
+BENCH_LEGS = ("eos_off_streams", "ragged_eos_streams", "ragged_bucketed_streams",
+              "sustained_batcher_streams", "sustained_batcher_streams_pipelined_spec",
+              "batcher_lowlat_streams", "batcher_device_streams", "batcher_device_spec_streams",
+              "batcher_device_serial_streams", "sustained_batcher_streams_prepared",
+              "http_reqs_per_s", "http_wav_reqs_per_s")
+STREAMING_ARGS = ["--batch", "8", "--frames", "16", "--repeats", "1"]
+
+
+def phase_bench(model_dir: str, smi: str) -> dict:
+    """Phase 12 (b) and (c): the bench in its own process and the streaming
+    bench through its main() in this one, on phase 4's checkpoint, at a
+    reduced size (BENCH_ENV, STREAMING_ARGS)."""
+    card = smi.splitlines()[0].rsplit(",", 1)[0].strip()
+    env = {**os.environ, **BENCH_ENV, "PTTS_BENCH_MODEL_DIR": model_dir}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ptts_torch.bench"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                          capture_output=True, text=True, timeout=600)
+    bench_s = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        if line.startswith(("[bench]", "[http")):
+            print(f"  {line}")
+    check(proc.returncode == 0, f"bench: rc {proc.returncode}; stderr {proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    check(len(lines) == 1, f"bench: {len(lines)} stdout lines, expected one JSON line")
+    r = json.loads(lines[0])
+    d = r["detail"]
+    check(r["metric"] == "concurrent_realtime_streams" and "vs_baseline" not in r,
+          f"bench: metric {r['metric']}, keys {sorted(r)}")
+    check(d["failed_legs"] == {}, f"bench: failed legs {d['failed_legs']}")
+    for key in ("value",) + BENCH_LEGS:
+        value = r["value"] if key == "value" else d.get(key)
+        check(value is not None and value > 0, f"bench: {key} = {value}")
+    check(d["http_stream_errors"] == 0 and d["http_wav_errors"] == 0,
+          f"bench: HTTP errors {d['http_stream_errors']} / {d['http_wav_errors']}")
+    check(d["platform"] == "gpu" and d["device"]["name"] == card,
+          f"bench: device {d['device']} on {d['platform']}, phase 1 read {card!r}")
+    for name, count in d["kernels"]["launches"].items():
+        check(count > 0, f"bench: {name} was not launched in the bench's process")
+    # the shapes launched in the bench's process and in its HTTP leg's
+    shapes = {name: parse_shapes(d["kernels"]["shapes"])[name]
+              + parse_shapes(d["http_kernels"]["shapes"])[name] for name in KERNELS}
+    print(f"bench (b): {bench_s:.1f} s, {r['value']:.1f} streams/chip offline (B=16, 16 "
+          f"frames), batcher {d['sustained_batcher_streams']:.1f} (first chunk p50 "
+          f"{d['batcher_first_chunk_p50_ms']:.1f} ms), device-bound "
+          f"{d['batcher_device_streams']:.1f}, HTTP {d['http_reqs_per_s']:.2f} req/s; "
+          f"seconds by leg {d['leg_s']}; kernels {d['kernels']}; HTTP leg's kernels "
+          f"{d['http_kernels']}")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench_streaming.main(STREAMING_ARGS)
+    streaming_s = time.perf_counter() - t0
+    streaming_launches = read_launches()
+    lines = out.getvalue().strip().splitlines()
+    check(rc == 0 and len(lines) == 1, f"bench_streaming: rc {rc}, stdout {lines}")
+    st = json.loads(lines[0])
+    sd = st["detail"]
+    check(st["metric"] == "p50_time_to_first_chunk_ms" and st["value"] > 0
+          and sd["steady_frame_ms"] > 0 and sd["device"]["name"] == card,
+          f"bench_streaming: {st}")
+    check(streaming_launches["causal_attention_qkv"] > 0,
+          f"bench_streaming: B1 was not launched ({streaming_launches})")
+    print(f"bench (c): bench_streaming {streaming_s:.1f} s, first chunk {st['value']:.2f} ms, "
+          f"{sd['steady_frame_ms']:.3f} ms per frame (B=8); launches {streaming_launches}, "
+          f"by shape {read_shapes()}")
+    return dict(bench=r, bench_s=bench_s, streaming=st, streaming_s=streaming_s, shapes=shapes,
+                launches=d["kernels"]["launches"], streaming_launches=streaming_launches)
+
+
+PHASE_S = {}
+
+
+def timed(label: str, fn, *args, **kw):
+    """fn(*args, **kw), its wall seconds printed and kept in PHASE_S."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    PHASE_S[label] = time.perf_counter() - t0
+    print(f"phase {label}: {PHASE_S[label]:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -1519,34 +1697,42 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_device()
-    phase_build()
-    results = phase_kernels()
+    t_start = time.perf_counter()
+    smi = timed("1 device", phase_device)
+    timed("2 build", phase_build)
     with tempfile.TemporaryDirectory(prefix="ptts_synth_") as tmp:
         os.environ["PTTS_PROFILE_DIR"] = os.path.join(tmp, "profile")
         t0 = time.perf_counter()
         model_dir = synth.write_model_dir(tmp, seed=0)
         print(f"synthetic full-size checkpoint: {time.perf_counter() - t0:.2f} s")
-        ctx, launches = phase_slice(model_dir)
+        offline = timed("12a bench offline", phase_bench_offline, model_dir)
+        ctx, launches = timed("4 slice", phase_slice, model_dir)
         cpu_ctx = api.load_dir(model_dir, device="cpu")
-        phase_parity(cpu_ctx, ctx)
+        timed("5 parity", phase_parity, cpu_ctx, ctx)
         # B1's and B2's plain versions on the card, by the switches alone
         plain_engine = TTSEngine(ctx, flags=KernelFlags(prefill_impl="plain",
                                                         window_impl="plain"))
-        stream = phase_stream(ctx, cpu_ctx, plain_engine)
-        cli_launches = phase_cli(model_dir, ctx)
-        serve = phase_serve(ctx, cpu_ctx)
-        mesh = phase_mesh(ctx, serve["pool_a"])
-        flags = phase_flags(ctx, plain_engine, tmp)
+        stream = timed("6 stream", phase_stream, ctx, cpu_ctx, plain_engine)
+        cli_launches = timed("7 cli", phase_cli, model_dir, ctx)
+        serve = timed("8 serve", phase_serve, ctx, cpu_ctx)
+        mesh = timed("9 mesh", phase_mesh, ctx, serve["pool_a"])
+        flags = timed("10 flags", phase_flags, ctx, plain_engine, tmp)
         del plain_engine
-        bf16 = phase_bf16(model_dir, ctx, stream, serve)
+        bf16 = timed("11 bf16", phase_bf16, model_dir, ctx, stream, serve)
         ctx.close()
         cpu_ctx.close()
+        bench_run = timed("12bc bench", phase_bench, model_dir, smi)
+    reset_launches()   # the last path's shapes into SEEN
+    seen = {name: SEEN[name] + bench_run["shapes"][name] for name in KERNELS}
+    results = timed("3 kernels", phase_kernels, seen)
     by_path = {name: {"slice": launches[name], "stream": stream["launches"][name],
                       "cli": cli_launches[name], "serve": serve["launches"][name],
                       "mesh": mesh["launches"][name],
                       "flags_plain": flags["plain_launches"][name],
-                      "flags_blocked": flags["launches"][name], "bf16": bf16["launches"][name]}
+                      "flags_blocked": flags["launches"][name], "bf16": bf16["launches"][name],
+                      "bench_offline": offline["launches"][name],
+                      "bench": bench_run["launches"][name],
+                      "bench_streaming": bench_run["streaming_launches"][name]}
                for name in KERNELS}
     print(json.dumps({"stream": {k: stream[k] for k in ("ttfc_first_ms", "ttfc_warm_ms", "lsb",
                                                         "rates", "profile", "drift")}}))
@@ -1556,6 +1742,10 @@ def main() -> int:
     print(json.dumps({"mesh": mesh}))
     print(json.dumps({"flags": flags}))
     print(json.dumps({"bf16": {k: v for k, v in bf16.items() if k != "shapes"}}))
+    print(json.dumps({"bench": {"offline_shapes": offline["shapes"],
+                                **{k: bench_run[k] for k in ("bench", "bench_s", "streaming",
+                                                             "streaming_s")}}}))
+    print(json.dumps({"phase_s": PHASE_S, "total_s": time.perf_counter() - t_start}))
 
     kernels = []
     for name, replaces, headline in (("causal_attention_qkv", f"{PALLAS}:361", (8, 128)),
@@ -1564,6 +1754,10 @@ def main() -> int:
         f32 = [c for c in cases if c["dtype"] == "f32"]
         bf16 = [c for c in cases if c["dtype"] == "bf16"]
         top = next(c for c in f32 if (c["B"], c["T"]) == headline)
+        launched = sorted(seen[name])
+        held = {(c["dtype"], c["B"], c["T"]) for c in cases}
+        check(set(launched) <= held, f"{name}: launched at {sorted(set(launched) - held)} "
+              f"with no case in phase 3")
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": launches[name], "launches_by_path": by_path[name],
@@ -1573,6 +1767,8 @@ def main() -> int:
             "library_computes": LIBRARY, "timed_shape": f"f32 B={top['B']} T={top['T']}",
             "max_rel_err_f32": max(c["max_rel_err"] for c in f32),
             "max_rel_err_bf16": max(c["max_rel_err"] for c in bf16),
+            "launched_shapes": {f"{d} B={b} T={t}": seen[name][(d, b, t)]
+                                for d, b, t in launched},
             "cases": cases,
         })
     print(json.dumps({"kernels": kernels}))
