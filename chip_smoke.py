@@ -5,8 +5,9 @@
 
 Phases; any failure raises, exits non-zero and prints no result. They run
 in this order, but for phase 3, which runs last, over every (B, T) at which
-the other phases launched a kernel, and for phase 12 (a), which runs after
-phase 2 while the card's memory is free. Each phase's seconds are printed:
+the other phases launched a kernel, for phase 12 (a), which runs after
+phase 2 while the card's memory is free, and for phase 13, which runs after
+phase 11, on its context. Each phase's seconds are printed:
   1. device  -- CUDA must be available; prints nvidia-smi's name and power limit
   2. build   -- nvcc builds the hand-written kernels from ptts_torch/csrc;
                 ptxas registers, shared memory and spills; where the toolkit
@@ -101,7 +102,9 @@ phase 2 while the card's memory is free. Each phase's seconds are printed:
                 request's; the PCM of the random model clips and amplifies
                 bf16 rounding past that gate, so it is printed only); (c)
                 printed only: per-chunk wall at B = 1 and 8, closed-loop
-                streams per chip at 64 slots, beside phases 6 and 8's f32
+                streams per chip at 64 slots, beside phases 6 and 8's f32;
+                (b)'s batcher runs eagerly: its latent records need the
+                frame step's Python at every frame
  12. bench   -- (a) one pass of each mode of ptts_torch.bench's offline
                 pipeline at its defaults (B = 256, 50 frames, bf16), in this
                 process: frames_used as the mode sets it, PCM finite and
@@ -115,17 +118,33 @@ phase 2 while the card's memory is free. Each phase's seconds are printed:
                 --batch 8 --frames 16 --repeats 1 through its main(), in this
                 process: one JSON line, first chunk and per-frame slope > 0,
                 B1 launched
+ 13. graphs  -- the frame loops replayed as CUDA graphs (ptts_torch/runtime/
+                graphs.py) against the same loops run eagerly
+                (TTSEngine(ctx, graphs=False)) in this process; (a) bit-equal:
+                generate_full in f32 and bf16 with EOS on and off and a
+                ragged 4-stream batch_generate; StreamingSession at B = 1 and
+                8 for 32 frames (past the Mimi ring's 24); phase 8 (a)'s texts
+                at 30-32 frames through 4 slots of a 32-column decode ring at
+                K = 1, at K = 4 with split_admit and over the 2 x 2 mesh, the
+                cursor past the ring; B1 and B2 launched; (b) printed, graph
+                against eager, beside the card's name and power limit:
+                per-chunk wall at B = 1 and 8, 64-slot streams per chip with
+                dispatch per step, launch calls and busy share of a profiled
+                stream step and serving step, the offline bench value at
+                B = 256, host syncs and done checks in one generate_full,
+                captures and their seconds, the graph pools' memory
 Launch counts are set to 0 before each of phases 4, 6, 7 and 12 (a) and (c)
-and read after; phase 8 sums them over its serving runs alone (B2 must stay
-at 0 there), phase 9 over its sharded serving runs and the dry run alone,
-phase 10 over (a)'s plain run and over (b)-(c)'s runs, phase 11 over its
-bf16 runs (the f32 references excluded); phase 12 (b) reads the counts
+and read after; phase 13 sums them over its runs, phase 8 over its serving
+runs alone (B2 must stay at 0 there), phase 9 over its sharded serving runs
+and the dry run alone, phase 10 over (a)'s plain run and over (b)-(c)'s
+runs, phase 11 over its bf16 runs (the f32 references excluded); phase 12
+(b) reads the counts
 that the bench's own process and its HTTP leg's report. Every reset first
 keeps the shapes launched since the last one (SEEN): phase 3 reads them.
 The int16 gates of phases 6 and 8 (c) let a clipping waveform fall back to
 its f32 view at 1e-3 of max (the random full-size PCM clips).
 Printed last: {"stream": ...}, {"serve": ...}, {"mesh": ...}, {"flags": ...},
-{"bf16": ...}, {"bench": ...} and {"phase_s": ...} lines, then
+{"bf16": ...}, {"bench": ...}, {"graphs": ...} and {"phase_s": ...} lines, then
 {"kernels": [...]} (each kernel's cases, one for each launched shape in
 each dtype), then
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -695,13 +714,14 @@ def chunk_times(engine, B: int, frames: int = 32) -> dict:
         check(bool(chunk.active.all()), f"B={B}: a stream ended with EOS off")
     check(sess.all_done, f"B={B}: session not done after {frames} frames")
     return dict(B=B, frames=frames, start_ms=start_ms, mean_ms=float(np.mean(times)),
-                max_ms=float(np.max(times)), first_ms=times[0])
+                p50_ms=float(np.median(times)), max_ms=float(np.max(times)), first_ms=times[0])
 
 
 def trace_figures(trace_dir: str, steps: int, wall_us: float, table: bool) -> dict:
-    """Kernels and device time per step, and the device busy share of the
-    host-clock wall, from a profiling.device_trace of ``steps`` steps
-    (prints the device-time table when ``table``)."""
+    """Kernels, host launch calls (kernel, graph, copy) and device time per
+    step, and the device busy share of the host-clock wall, from a
+    profiling.device_trace of ``steps`` steps (prints the device-time table
+    when ``table``)."""
     if table:
         print(profiling.format_summary(trace_dir, 20))
     ops = profiling.summarize_trace(trace_dir)
@@ -709,14 +729,17 @@ def trace_figures(trace_dir: str, steps: int, wall_us: float, table: bool) -> di
                   if not name.startswith(("Memcpy", "Memset")))
     busy = profiling.busy_us(trace_dir)
     check(kernels > 0, "the profiler saw no device kernel")
+    calls = profiling.launch_calls(trace_dir)
     return dict(steps=steps, kernels_per_step=kernels / steps,
+                launches_per_step={k: v / steps for k, v in calls.items()},
                 device_us_per_step=busy / steps, profiled_wall_us_per_step=wall_us / steps,
                 busy_share=busy / wall_us)
 
 
-def profile_steps(engine, steps: int = 8) -> dict:
+def profile_steps(engine, steps: int = 8, table: bool = True) -> dict:
     """A device trace of ``steps`` warm streaming steps at B = 1: prints
-    the device-time table; returns kernels per step and the busy share."""
+    the device-time table when ``table``; returns kernels and launch calls
+    per step and the busy share."""
     sess = StreamingSession.start(engine, ["Hello world!"],
                                   params=api.Params(seed=5, num_frames=steps + 4,
                                                     eos_enabled=False))
@@ -729,7 +752,7 @@ def profile_steps(engine, steps: int = 8) -> dict:
             sess.step()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    return trace_figures(trace_dir, steps, wall_us, table=True)
+    return trace_figures(trace_dir, steps, wall_us, table=table)
 
 
 def phase_stream(gpu_ctx, cpu_ctx, plain_engine) -> dict:
@@ -1449,7 +1472,10 @@ def recorded_latents(out: list):
     (streaming.flow_frame_step, which fused_stream_step(s) call) appends
     (frame index, pre-step done flags, raw latent [B, latent] in f32) to
     ``out``: the latents of a stream or a batcher run, which their PCM
-    chunks do not show."""
+    chunks do not show. A graph replay runs no Python: with graphs only the
+    eager warm-up frames (graphs.WARMUP: a session's frames 0 and 1) and
+    the capture append, and the capture's record holds what the last
+    replay wrote (its frame index is the last frame's)."""
     step = streaming.flow_frame_step
 
     def record(w, cache, x, noise, time_embs, frame_idx, eos_step, done, *args, **kw):
@@ -1464,6 +1490,19 @@ def recorded_latents(out: list):
         yield out
     finally:
         streaming.flow_frame_step = step
+
+
+@contextlib.contextmanager
+def eager_steps(engine):
+    """While active, a batcher or session built on ``engine`` runs its
+    frame step eagerly (engine.graphs is False), as TTSEngine(ctx,
+    graphs=False) would, on the same weights."""
+    saved = engine._graphs_on
+    engine._graphs_on = False
+    try:
+        yield engine
+    finally:
+        engine._graphs_on = saved
 
 
 def first_two_latents(records: list, trash_row: bool = False) -> np.ndarray:
@@ -1554,12 +1593,16 @@ def phase_bf16(model_dir: str, ctx, stream: dict, serve: dict) -> dict:
     check(rel_stream <= 0.08, f"bf16 stream: first two latents {rel_stream:.3e} > 8%")
 
     # phase 8 (a)'s requests through 4 slots, f32 and bf16 alike: the same
-    # schedule, so the records align step by step and row by row
+    # schedule, so the records align step by step and row by row. The
+    # records need the frame step's Python at every frame, which a graph
+    # replay does not run, and the later admissions' first frames fall in
+    # replays: these two pools are eager (phase 13 holds the replayed pool
+    # bit-equal to the eager one)
     pool = dict(slots=4, admit_chunk=2, prefix_budget=128, max_len=192)
-    with recorded_latents([]) as rec_f:
+    with recorded_latents([]) as rec_f, eager_steps(ctx.engine):
         serve_batch(ctx.engine, PROMPTS[:6], SERVE_FRAMES, host_prefix=(5,), **pool)
     reset_launches()
-    with recorded_latents([]) as rec_b:
+    with recorded_latents([]) as rec_b, eager_steps(engine):
         rids, res, _ = serve_batch(engine, PROMPTS[:6], SERVE_FRAMES, host_prefix=(5,), **pool)
     sync("cuda")
     serve_launches, serve_shapes = read_launches(), read_shapes()
@@ -1600,6 +1643,198 @@ def phase_bf16(model_dir: str, ctx, stream: dict, serve: dict) -> dict:
                 rates=rates, load=load,
                 f32_rates=stream["rates"], f32_load=f32_load, launches=by_path,
                 shapes={"generate_full": shapes, "stream": stream_shapes, "serve": serve_shapes})
+
+
+# phase 13: phase 8 (a)'s requests at 30-32 frames through 4 slots of a pool
+# whose FlowLM decode ring is 32 columns (max_len - prefix_budget): every
+# request outlasts the Mimi ring's 24-frame cycle and the pool's cursor laps
+# the FlowLM ring
+GRAPH_FRAMES = (30, 31, 32, 30, 31, 32)
+GRAPH_POOL = dict(slots=4, admit_chunk=2, prefix_budget=128, max_len=160)
+
+
+def graph_pool_bytes() -> int:
+    """Bytes of the allocator's segments that belong to a CUDA graph's
+    private pool (torch.cuda.memory_snapshot: pool id other than (0, 0))."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
+def count_syncs(fn):
+    """(fn(), the host syncs PyTorch flags while it runs), from
+    torch.cuda.set_sync_debug_mode("warn"): every synchronizing operation
+    (.item(), bool(), .cpu(), a copy to pageable memory) warns once."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def same_results(got: dict, want: dict, rids, what: str) -> None:
+    for rid in rids:
+        check(got[rid].frames == want[rid].frames,
+              f"{what} rid {rid}: {got[rid].frames} frames, eager {want[rid].frames}")
+        check(np.array_equal(got[rid].pcm_i16, want[rid].pcm_i16),
+              f"{what} rid {rid}: replayed PCM differs from eager")
+
+
+def same_generate(a, b, what: str) -> None:
+    check(a.frames_used == b.frames_used, f"{what}: frames {a.frames_used} vs {b.frames_used}")
+    for name in ("latents", "first_cond", "first_flow"):
+        check(np.array_equal(getattr(a, name), getattr(b, name)),
+              f"{what}: {name} differs from eager")
+    check(np.array_equal(a.audio.samples, b.audio.samples), f"{what}: PCM differs from eager")
+
+
+def phase_graphs(ctx, smi: str) -> dict:
+    """Phase 13: the frame loops replayed as CUDA graphs (runtime/graphs)
+    against the same loops run eagerly (TTSEngine(ctx, graphs=False)), in
+    this process. Launch counts are summed over the phase's runs, graph and
+    eager alike (both are the main path, with graphs on and off)."""
+    from ptts_torch.runtime import graphs as rgraphs
+
+    engine = ctx.engine
+    eager = TTSEngine(ctx, graphs=False)
+    check(engine.graphs and not eager.graphs, "graphs: the default card engine does not "
+          "replay graphs, or graphs=False does")
+    served = dict.fromkeys(KERNELS, 0)
+
+    def on_path(fn, *args, **kw):
+        reset_launches()
+        out = fn(*args, **kw)
+        for name, n in read_launches().items():
+            served[name] += n
+        return out
+
+    stats0 = dict(rgraphs.STATS)
+    pool0, reserved0 = graph_pool_bytes(), torch.cuda.memory_reserved()
+
+    # (a) offline: f32 and bf16, EOS on with ragged budgets and EOS off
+    bf16 = (TTSEngine(ctx, dtype=torch.bfloat16), TTSEngine(ctx, dtype=torch.bfloat16,
+                                                             graphs=False))
+    runs = (api.Params(seed=11), api.Params(seed=12, num_frames=40, eos_enabled=False))
+    offline = {}
+    for label, (g, e) in (("f32", (engine, eager)), ("bf16", bf16)):
+        for p in runs:
+            tag = f"{label} EOS {'on' if p.eos_enabled else 'off'}"
+            a = on_path(g.generate_full, PROMPTS[1], params=p)
+            same_generate(a, on_path(e.generate_full, PROMPTS[1], params=p),
+                          f"graphs (a) generate_full {tag}")
+            offline[tag] = a.frames_used
+        p = api.Params(seed=13)
+        got = on_path(g.batch_generate, PROMPTS[:4], params=p)
+        want = on_path(e.batch_generate, PROMPTS[:4], params=p)
+        for i, (x, y) in enumerate(zip(got, want)):
+            check(np.array_equal(x.samples, y.samples),
+                  f"graphs (a) batch_generate {label} stream {i}: PCM differs from eager")
+        offline[f"{label} batch frames"] = [len(x.samples) // FRAME_SAMPLES for x in got]
+    del bf16
+    print(f"graphs (a): generate_full and a 4-stream ragged batch_generate, f32 and bf16, EOS "
+          f"on and off, bit-equal replayed and eager; frames {offline}")
+
+    # (a) StreamingSession at B = 1 and 8, 32 frames (past the Mimi ring's 24)
+    p32 = api.Params(seed=5, num_frames=32, eos_enabled=False)
+    for B in (1, 8):
+        a = on_path(lambda: list(StreamingSession.start(engine, PROMPTS[:B], params=p32)))
+        b = on_path(lambda: list(StreamingSession.start(eager, PROMPTS[:B], params=p32)))
+        check(len(a) == len(b) == 32, f"graphs (a) session B={B}: {len(a)} / {len(b)} chunks")
+        for i, (x, y) in enumerate(zip(a, b)):
+            check(np.array_equal(x.pcm_i16, y.pcm_i16) and np.array_equal(x.active, y.active),
+                  f"graphs (a) session B={B} chunk {i}: replayed differs from eager")
+    print("graphs (a): StreamingSession B=1 and B=8, 32 frames: every chunk bit-equal")
+
+    # (a) the batcher at K = 1 and K = 4 with split_admit, and the 2 x 2 mesh
+    hmesh, _, _ = mesh_layouts()
+    laps = {}
+    for label, kw in (("K=1", dict(frames_per_step=1)),
+                      ("K=4 split", dict(frames_per_step=4, split_admit=True)),
+                      ("K=1 mesh", dict(frames_per_step=1, mesh=hmesh))):
+        rids, got, b = on_path(serve_batch, engine, PROMPTS[:6], GRAPH_FRAMES,
+                               host_prefix=(5,), **GRAPH_POOL, **kw)
+        _, want, be = on_path(serve_batch, eager, PROMPTS[:6], GRAPH_FRAMES,
+                              host_prefix=(5,), **GRAPH_POOL, **kw)
+        check(b._graphs is not None and len(b._graphs) > 0 and be._graphs is None,
+              f"graphs (a) batcher {label}: no step was replayed")
+        ring = b.max_len - b.prefix_budget
+        lap = (int(b.shards[0].cache.cursor) - b.prefix_budget) / ring
+        check(lap > 1, f"graphs (a) batcher {label}: the cursor did not lap the ring ({lap:.2f})")
+        same_results(got, want, rids, f"graphs (a) batcher {label}")
+        laps[label] = dict(ring_laps=lap, shards=len(b.shards), graphs=len(b._graphs))
+    print(f"graphs (a): phase 8 (a)'s requests at {GRAPH_FRAMES} frames through 4 slots, "
+          f"replayed vs eager: frames and int16 PCM equal; {laps}")
+    for name, label in (("causal_attention_qkv", "B1"), ("window_attention_qkv", "B2")):
+        check(served[name] > 0, f"graphs: {label} was not launched on the phase's paths")
+    sync("cuda")
+    pool1, reserved1 = graph_pool_bytes(), torch.cuda.memory_reserved()
+
+    # (b) printed only, graph against eager in this call
+    rates = {label: [chunk_times(e, B) for B in (1, 8)]
+             for label, e in (("graphs", engine), ("eager", eager))}
+    load = {label: serve_load(e, 64, max_seconds=5.0, profile_steps=8)
+            for label, e in (("graphs", engine), ("eager", eager))}
+    prof = {label: profile_steps(e, table=False) for label, e in (("graphs", engine),
+                                                                    ("eager", eager))}
+    text, p = PROMPTS[1], api.Params(seed=11)
+    syncs, checks = {}, {}
+    for label, e in (("graphs", engine), ("eager", eager)):
+        before = flowlm.HOST_CHECKS
+        syncs[label] = count_syncs(lambda: e.generate_full(text, params=p))[1]
+        checks[label] = flowlm.HOST_CHECKS - before
+    cfg, mcfg = bench.configs()
+    fw, mw = bench.device_weights(torch.bfloat16, torch.device("cuda"), cfg, mcfg)
+    value = {}
+    for label, on in (("eager", False), ("graphs", True)):
+        off = bench.OfflineBench(fw, mw, BENCH_BATCH, BENCH_FRAMES, torch.bfloat16, cfg, mcfg,
+                                 graphs=on)
+        streams, wall, compile_s = off.measure("on", 1, verbose=False)
+        value[label] = dict(streams=streams, wall_s=wall, compile_s=compile_s)
+        del off
+    del fw, mw
+    torch.cuda.empty_cache()
+    stats2 = dict(rgraphs.STATS)
+    captures = stats2["captures"] - stats0["captures"]
+    capture_s = stats2["capture_s"] - stats0["capture_s"]
+
+    print(f"graphs (b), {smi}:")
+    for label in ("graphs", "eager"):
+        for r in rates[label]:
+            print(f"  {label}: stream B={r['B']} per-chunk wall mean {r['mean_ms']:.3f} ms, p50 "
+                  f"{r['p50_ms']:.3f} ms, max {r['max_ms']:.3f} ms over {r['frames']} frames "
+                  f"(session start {r['start_ms']:.3f} ms, first step {r['first_ms']:.3f} ms)")
+        pr, r = prof[label], load[label]
+        rp = r["profile"]
+        print(f"  {label}: stream B=1 profiled step: launch calls {pr['launches_per_step']}, "
+              f"{pr['kernels_per_step']:.1f} device kernels, {pr['device_us_per_step']:.1f} us "
+              f"device of {pr['profiled_wall_us_per_step']:.1f} us wall (busy share "
+              f"{pr['busy_share']:.3f})")
+        print(f"  {label}: 64 slots closed loop: {r['audio_s_per_s']:.2f} streams per chip "
+              f"(audio s per wall s), {r['step_ms']:.3f} ms per step, dispatch "
+              f"{r['phase_ms_per_step']['dispatch']:.3f} ms per step, phases ms/step "
+              f"{ {k: round(v, 3) for k, v in r['phase_ms_per_step'].items()} }; profiled step: "
+              f"launch calls {rp['launches_per_step']}, {rp['device_us_per_step']:.1f} us device "
+              f"of {rp['profiled_wall_us_per_step']:.1f} us wall (busy share "
+              f"{rp['busy_share']:.3f})")
+        v = value[label]
+        print(f"  {label}: offline bench value (mode on, B={BENCH_BATCH}, {BENCH_FRAMES} frames, "
+              f"bf16) {v['streams']:.1f} streams/chip, wall {v['wall_s']:.4f} s, first pass "
+              f"(compile_s) {v['compile_s']:.2f} s; host syncs in one f32 generate_full "
+              f"{syncs[label]}, of which done checks {checks[label]}")
+    print(f"  captures in this phase {captures}, {capture_s:.3f} s in all "
+          f"({capture_s / max(captures, 1) * 1e3:.1f} ms each); graph pools "
+          f"{pool1 / 2**20:.1f} MiB after (a) (from {pool0 / 2**20:.1f} MiB), memory_reserved "
+          f"+{(reserved1 - reserved0) / 2**20:.1f} MiB over (a)")
+    return dict(offline_frames=offline, batcher=laps, rates=rates, load=load, profile=prof,
+                host_syncs=syncs, done_checks=checks, bench_value=value, captures=captures,
+                capture_s=capture_s, replays=stats2["replays"] - stats0["replays"],
+                graph_pool_mib=pool1 / 2**20,
+                reserved_growth_mib=(reserved1 - reserved0) / 2**20, launches=served,
+                device=smi)
 
 
 # phase 12 (b), (c): ptts_torch.bench and bench_streaming at a reduced size
@@ -1719,6 +1954,7 @@ def main() -> int:
         flags = timed("10 flags", phase_flags, ctx, plain_engine, tmp)
         del plain_engine
         bf16 = timed("11 bf16", phase_bf16, model_dir, ctx, stream, serve)
+        graphs_run = timed("13 graphs", phase_graphs, ctx, smi)
         ctx.close()
         cpu_ctx.close()
         bench_run = timed("12bc bench", phase_bench, model_dir, smi)
@@ -1732,7 +1968,8 @@ def main() -> int:
                       "flags_blocked": flags["launches"][name], "bf16": bf16["launches"][name],
                       "bench_offline": offline["launches"][name],
                       "bench": bench_run["launches"][name],
-                      "bench_streaming": bench_run["streaming_launches"][name]}
+                      "bench_streaming": bench_run["streaming_launches"][name],
+                      "graphs": graphs_run["launches"][name]}
                for name in KERNELS}
     print(json.dumps({"stream": {k: stream[k] for k in ("ttfc_first_ms", "ttfc_warm_ms", "lsb",
                                                         "rates", "profile", "drift")}}))
@@ -1745,6 +1982,7 @@ def main() -> int:
     print(json.dumps({"bench": {"offline_shapes": offline["shapes"],
                                 **{k: bench_run[k] for k in ("bench", "bench_s", "streaming",
                                                              "streaming_s")}}}))
+    print(json.dumps({"graphs": graphs_run}))
     print(json.dumps({"phase_s": PHASE_S, "total_s": time.perf_counter() - t_start}))
 
     kernels = []

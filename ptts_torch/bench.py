@@ -31,6 +31,9 @@ a directory in the temp directory keyed by the configs),
 PTTS_BENCH_WARMUP_STEPS (12: the batcher legs' untimed steps). PTTS_DTYPE
 (default bf16) sets the engine dtype of the prepared and HTTP legs, as in
 bench.py. ``detail.leg_s`` holds each leg's wall seconds, set-up included.
+On the card every frame loop replays CUDA graphs (runtime/graphs) and
+``detail.graphs`` says so; their capture falls inside each leg's first pass
+(the offline leg's ``compile_s``, the batcher legs' warm-up steps).
 
 Weights: a seeded synthetic checkpoint (ptts_torch.synth, scale 0.02),
 written once into PTTS_BENCH_MODEL_DIR and loaded through the engine's path
@@ -61,6 +64,7 @@ from .config import FlowLMConfig, KernelFlags, MimiConfig
 from .io.safetensors import SafetensorsFile
 from .models import flowlm, mimi
 from .ops.cuda import fused_attention as fa
+from .runtime.graphs import GraphCache
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 T0 = 64             # prompt columns: voice cond (~30) + tokens (~30) + BOS
@@ -180,13 +184,18 @@ class OfflineBench:
         width.
 
     Prefill and the Mimi transformer run the kernels the device resolves
-    (B1 and B2 on CUDA, their plain versions on the CPU)."""
+    (B1 and B2 on CUDA, their plain versions on the CPU). ``graphs``
+    (default: on a CUDA device) runs the frame loops as CUDA graph replays
+    (runtime/graphs), as TTSEngine does; the first pass captures them."""
 
     MODES = ("on", "off", "ragged", "ragged_bucketed")
 
     def __init__(self, fw, mw, batch: int, frames: int, dtype: torch.dtype,
-                 cfg: FlowLMConfig, mcfg: MimiConfig):
+                 cfg: FlowLMConfig, mcfg: MimiConfig, graphs: Optional[bool] = None):
         dev = fw.in_proj.device
+        if graphs is None:
+            graphs = dev.type == "cuda"
+        self.graphs = GraphCache() if graphs else None
         self.fw, self.mw, self.cfg, self.mcfg = fw, mw, cfg, mcfg
         self.batch, self.frames, self.dtype = batch, frames, dtype
         self.frame_bucket = ((frames + 63) // 64) * 64
@@ -209,17 +218,17 @@ class OfflineBench:
     def _generate(self, px, take, eos_mode: str) -> flowlm.GenResult:
         cfg = self.cfg
         cache, x0 = flowlm.prefill_init(self.fw, px[take], self.lengths[take], cfg,
-                                        self.max_len, self.prefill_impl)
+                                        self.max_len, self.prefill_impl, graphs=self.graphs)
         if eos_mode == "off":
             return flowlm.generate_latents(self.fw, cache, x0, self.noise[take], cfg,
                                            max_frames=self.frame_bucket, num_steps=1,
-                                           eos_enabled=False)
+                                           eos_enabled=False, graphs=self.graphs)
         return flowlm.generate_latents_while(
             self.fw, cache, x0, self.noise[take], cfg, max_frames=self.frame_bucket,
             num_steps=1, eos_threshold=-1e9 if eos_mode == "ragged" else 1e9,
             eos_min_frames=1,
             eos_after=0 if eos_mode == "on" else self.ragged_after[take],
-            max_frames_per_stream=self.budget[take])
+            max_frames_per_stream=self.budget[take], graphs=self.graphs)
 
     @torch.inference_mode()
     def run(self, mode: str, px: Optional[torch.Tensor] = None):
@@ -257,11 +266,16 @@ class OfflineBench:
 
     def measure(self, mode: str, repeats: int, verbose: bool = True):
         """(streams, wall, compile_s) of ``mode``: compile_s is the first
-        pass (on a fresh machine it builds the kernels), wall the least of
+        pass (on a fresh machine it builds the kernels; with graphs, two
+        passes, which capture them), wall the least of
         ``repeats`` chained slopes (t3 - t1) / 2, streams the emitted audio
         seconds over wall."""
         t_compile = time.perf_counter()
         self.chained(1, mode)
+        if self.graphs is not None:
+            # a pass of one chunk per loop only warms its graph up: the next
+            # captures it, and the timed passes replay
+            self.chained(1, mode)
         compile_s = time.perf_counter() - t_compile
         walls = []
         for _ in range(repeats):
@@ -328,6 +342,7 @@ def run_bench(batch: int, frames: int, dtype_name: str, repeats: int,
             "weights_s": weights_s,
             "cuda_init_s": cuda_init_s[0],
             "platform": "gpu" if dev.type == "cuda" else dev.type,
+            "graphs": off.graphs is not None,
             "eos_off_streams": streams_off,
             "eos_on_vs_off": streams_on / streams_off,
             "ragged_eos_streams": streams_ragged,
@@ -379,7 +394,7 @@ def run_batcher_bench(slots: int, dtype_name: str, target_finished: int,
     # requests are enqueued directly, so no tokenizer or context is needed)
     flags = KernelFlags()
     eng = types.SimpleNamespace(flowlm_cfg=cfg, mimi_cfg=mcfg, dtype=dtype, fw=fw, mw=mw,
-                                flags=flags, device=dev,
+                                flags=flags, device=dev, graphs=dev.type == "cuda",
                                 prefill_impl=flowlm.resolve_prefill_impl(flags.prefill_impl, dev))
     b = ContinuousBatcher(eng, slots=slots, max_len=max_len, admit_chunk=admit_chunk,
                           prefix_budget=T0, max_num_steps=1, frames_per_step=frames_per_step,

@@ -18,7 +18,6 @@ admission, B2 in the offline Mimi decode) under a mesh.
 
 from __future__ import annotations
 
-import dataclasses
 import types
 from typing import Dict, List, Sequence, Tuple
 
@@ -100,7 +99,7 @@ def _frame_step_args(cfg: FlowLMConfig, device) -> tuple:
     cache = flowlm.make_cache(cfg, B, MAXLEN, torch.float32, dev)
     cache.prefix_len.fill_(T0)
     cache.start.fill_(T0)
-    cache = dataclasses.replace(cache, cursor=T0, t0=T0)
+    cache = flowlm.seek(cache, T0, T0)
     x = torch.zeros(B, cfg.d_model, device=dev)
     noise = torch.zeros(B, cfg.latent_dim, device=dev)
     time_embs = flowlm.lsd_time_embeds(w, 1, cfg)
@@ -200,7 +199,7 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
     pool_mesh = pmesh.make_multihost_mesh(2, devices[:4])
     eng = types.SimpleNamespace(flowlm_cfg=cfg, mimi_cfg=mcfg, dtype=torch.float32, fw=fw,
                                 mw=mw, device=devices[0], flags=KernelFlags(),
-                                prefill_impl="auto")
+                                prefill_impl="auto", graphs=devices[0].type == "cuda")
     bat = ContinuousBatcher(eng, slots=4, max_len=24, admit_chunk=2, prefix_budget=T0,
                             max_num_steps=2, mesh=pool_mesh)
     rng = np.random.default_rng(0)

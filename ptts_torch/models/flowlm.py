@@ -3,9 +3,12 @@
 Every function mirrors its JAX namesake and takes the weights first: ``w``
 is the module from ptts_torch.convert.flowlm_weights, whose buffers carry
 the JAX host dict's names (``w.in_proj`` is ``w["in_proj"]`` there). The
-frame loops are Python loops over frame_step: generate_latents_while stops
-once every stream is done, generate_latents runs a fixed, resumable number
-of frames with no host sync, and runtime/streaming runs one frame per call.
+frame loops advance a FrameLoop, whose state lives on the device as the
+JAX loops' carry does (the KV cursor included): generate_latents_while
+stops once every stream is done, checking on the host once per chunk of
+frames, generate_latents runs a fixed, resumable number of frames with no
+host sync, and runtime/streaming runs one frame per call. Given a
+runtime/graphs.GraphCache, each chunk is a CUDA graph replay.
 The prompt prefill runs the fused RoPE + causal attention kernel
 (ops/cuda/fused_attention.causal_attention_qkv) or, with
 ``attn_impl="plain"``, its plain version; the per-frame decode attention is
@@ -191,20 +194,30 @@ class KVCache:
     the same column, and a stream's column t is valid iff t < prefix_len[b]
     or it holds a decode write at or after start[b]. Decode columns form a
     ring of R = Tmax - t0 columns after the prefix region; the offline path
-    sizes the cache prefix + frames, so it never wraps. ``cursor`` and ``t0``
-    are host integers (the frame loop runs on the host). decode_step writes
-    k and v IN PLACE and returns the cache with the cursor advanced."""
+    sizes the cache prefix + frames, so it never wraps. ``cursor`` is a 0-d
+    int32 tensor on the cache's device, as in the JAX package, so a captured
+    frame (runtime/graphs) reads and advances it in place; ``t0`` is fixed
+    for the cache's life and stays a host int. ``cursor_host`` mirrors the
+    cursor on the host where the eager path keeps it (None where a graph
+    advances the cursor); only the blocked decode attention reads it.
+    decode_step writes k and v IN PLACE and advances the cursor in place."""
 
     k: torch.Tensor
     v: torch.Tensor
     prefix_len: torch.Tensor  # [B] int32
     start: torch.Tensor       # [B] int32
-    cursor: int               # next decode write (monotonic)
+    cursor: torch.Tensor      # 0-d int32: next decode write (monotonic)
     t0: int                   # first decode column
+    cursor_host: Optional[int] = None
 
     @property
     def max_len(self) -> int:
         return self.k.shape[2]
+
+    @property
+    def ring(self) -> int:
+        """R, the number of decode columns."""
+        return max(self.max_len - self.t0, 1)
 
     @property
     def pos(self) -> torch.Tensor:
@@ -212,10 +225,9 @@ class KVCache:
         return self.prefix_len + (self.cursor - self.start)
 
     @property
-    def write_col(self) -> int:
-        """Ring column of the next decode write."""
-        R = max(self.max_len - self.t0, 1)
-        return self.t0 + (self.cursor - self.t0) % R
+    def write_col(self) -> torch.Tensor:
+        """0-d ring column of the next decode write."""
+        return self.t0 + torch.remainder(self.cursor - self.t0, self.ring)
 
     def valid_mask(self, through_cursor: bool = True) -> torch.Tensor:
         """[B, Tmax] bool key validity (incl. the write at ``cursor`` when
@@ -223,13 +235,20 @@ class KVCache:
         with m % R == j."""
         t = torch.arange(self.max_len, device=self.k.device)[None, :]
         hi = self.cursor + 1 if through_cursor else self.cursor
-        R = max(self.max_len - self.t0, 1)
+        R = self.ring
         M = hi - self.t0
         j = t - self.t0
         abs_idx = self.t0 + M - 1 - torch.remainder(M - 1 - j, R)
-        dec_valid = ((j >= 0) & (j < min(M, R))
+        dec_valid = ((j >= 0) & (j < torch.clamp(M, max=R))
                      & (abs_idx >= self.start[:, None]) & (abs_idx < hi))
         return (t < self.prefix_len[:, None]) | dec_valid
+
+
+def seek(cache: KVCache, cursor: int, t0: int) -> KVCache:
+    """The cache with its cursor set to ``cursor`` in place and its first
+    decode column at ``t0`` (host mirror included)."""
+    cache.cursor.fill_(cursor)
+    return dataclasses.replace(cache, t0=t0, cursor_host=cursor)
 
 
 def make_cache(cfg: FlowLMConfig, batch: int, max_len: int,
@@ -240,7 +259,8 @@ def make_cache(cfg: FlowLMConfig, batch: int, max_len: int,
                    v=torch.zeros(shape, dtype=dtype, device=device),
                    prefix_len=torch.zeros(batch, dtype=torch.int32, device=device),
                    start=torch.zeros(batch, dtype=torch.int32, device=device),
-                   cursor=0, t0=0)
+                   cursor=torch.zeros((), dtype=torch.int32, device=device), t0=0,
+                   cursor_host=0)
 
 
 def resolve_prefill_impl(choice: str = "auto", device="cpu") -> str:
@@ -283,11 +303,16 @@ def prefill_kv(w, x: torch.Tensor, lengths: torch.Tensor, cfg: FlowLMConfig,
 
 
 def prefill_init(w, x: torch.Tensor, lengths: torch.Tensor, cfg: FlowLMConfig,
-                 max_len: int, attn_impl: str = "auto") -> Tuple[KVCache, torch.Tensor]:
+                 max_len: int, attn_impl: str = "auto",
+                 graphs=None) -> Tuple[KVCache, torch.Tensor]:
     """Prompt pass that builds a [L, B, max_len, H, D] cache holding the
-    prompt's K/V in its first T columns (``attn_impl``: see prefill_kv)."""
-    return prefill(w, make_cache(cfg, x.shape[0], max_len, x.dtype, x.device), x, lengths,
-                   cfg, attn_impl)
+    prompt's K/V in its first T columns (``attn_impl``: see prefill_kv).
+    With ``graphs`` (runtime/graphs.GraphCache) the cache is the one it
+    keeps for this shape (static_cache), which the captured loop reads."""
+    B = x.shape[0]
+    cache = (make_cache(cfg, B, max_len, x.dtype, x.device) if graphs is None
+             else static_cache(graphs, cfg, B, max_len, x.dtype, x.device))
+    return prefill(w, cache, x, lengths, cfg, attn_impl)
 
 
 def prefill(w, cache: KVCache, x: torch.Tensor, lengths: torch.Tensor,
@@ -301,33 +326,53 @@ def prefill(w, cache: KVCache, x: torch.Tensor, lengths: torch.Tensor,
     cache.v[:, :, :T] = v_new.to(cache.v.dtype)
     cache.prefix_len.copy_(lengths)
     cache.start.fill_(T)
-    return dataclasses.replace(cache, cursor=T, t0=T), last
+    return seek(cache, T, T), last
+
+
+def _host_write_col(cache: KVCache) -> int:
+    """The write column from the host mirror of the cursor: the blocked
+    decode attention's trip count, which must not need a device read."""
+    if cache.cursor_host is None:
+        raise ValueError("the blocked decode attention needs the cursor's host mirror, which "
+                         "only the eager frame loop keeps (graphs never run this path)")
+    return cache.t0 + (cache.cursor_host - cache.t0) % cache.ring
 
 
 def decode_step(w, cache: KVCache, x: torch.Tensor, cfg: FlowLMConfig,
-                flags: KernelFlags = DEFAULT_FLAGS) -> Tuple[KVCache, torch.Tensor]:
+                flags: KernelFlags = DEFAULT_FLAGS,
+                live: Optional[torch.Tensor] = None) -> Tuple[KVCache, torch.Tensor]:
     """One KV-cached transformer step for B streams [B, d] at their own
-    positions; writes each layer's k/v at the cursor column in place. The
-    decode attention is the one ``flags`` chooses
-    (_decode_attention_dispatch)."""
+    positions; writes each layer's k/v at the cursor column in place and
+    advances the cursor in place (the returned cache shares every tensor
+    with ``cache``). The decode attention is the one ``flags`` chooses
+    (_decode_attention_dispatch). ``live`` (0-d bool, the chunked loop's
+    gate): when False the column keeps its old k/v and the cursor stays."""
     B, d = x.shape
     H, D = cfg.num_heads, cfg.head_dim
     pos = cache.pos
-    col = cache.write_col
+    col = cache.write_col.reshape(1).long()
+    scalars = None
+    if flags.decode_impl == "blocked":
+        scalars = (cache.prefix_len, cache.start, _host_write_col(cache))
     mask = cache.valid_mask(through_cursor=True)
     for l in range(cfg.num_layers):
         xn = layernorm(x, w.norm1_w[l], w.norm1_b[l], cfg.ln_eps)
         qkv = _linear(w.in_proj[l], None, xn)
         q, k, v = (qkv[:, i * d : (i + 1) * d].reshape(B, 1, H, D) for i in range(3))
         q, k = rope_rotate_halves(q, k, pos[:, None], cfg.max_period)
-        cache.k[l, :, col] = k[:, 0].to(cache.k.dtype)
-        cache.v[l, :, col] = v[:, 0].to(cache.v.dtype)
-        attn = _decode_attention_dispatch(q[:, 0], cache.k[l], cache.v[l], mask,
-                                          (cache.prefix_len, cache.start, col), flags)
+        k, v = k.to(cache.k.dtype), v.to(cache.v.dtype)
+        if live is not None:
+            k = torch.where(live, k, cache.k[l].index_select(1, col))
+            v = torch.where(live, v, cache.v[l].index_select(1, col))
+        cache.k[l].index_copy_(1, col, k)
+        cache.v[l].index_copy_(1, col, v)
+        attn = _decode_attention_dispatch(q[:, 0], cache.k[l], cache.v[l], mask, scalars, flags)
         x = x + _linear(w.out_proj[l], None, attn.reshape(B, d))
         xn = layernorm(x, w.norm2_w[l], w.norm2_b[l], cfg.ln_eps)
         x = x + _linear(w.linear2[l], None, gelu_erf(_linear(w.linear1[l], None, xn)))
-    return dataclasses.replace(cache, cursor=cache.cursor + 1), x
+    cache.cursor.add_(1 if live is None else live.to(torch.int32))
+    mirror = None if cache.cursor_host is None or live is not None else cache.cursor_host + 1
+    return dataclasses.replace(cache, cursor_host=mirror), x
 
 
 # ---------------------------------------------------------------------------
@@ -441,16 +486,17 @@ def frame_step(w, cache: KVCache, x: torch.Tensor, noise: torch.Tensor,
                time_embs: torch.Tensor, i, eos_step: torch.Tensor, done: torch.Tensor,
                cfg: FlowLMConfig, *, eos_enabled: bool = True, eos_threshold=-4.0,
                eos_min_frames=1, eos_after=0, max_frames: Optional[torch.Tensor] = None,
-               num_steps: Optional[torch.Tensor] = None, flags: KernelFlags = DEFAULT_FLAGS):
+               num_steps: Optional[torch.Tensor] = None, flags: KernelFlags = DEFAULT_FLAGS,
+               live: Optional[torch.Tensor] = None):
     """One generation frame for B streams: out_norm -> EOS -> LSD ->
     input_linear -> KV decode step.
 
-    ``i`` is the frame index (host int or [B]); the EOS threshold and
-    min-frames are scalars or [B]; frame i is emitted, then a stream is done
-    once i >= eos_step + eos_after or i + 1 >= max_frames[b]. A [B, S_max, fd]
-    ``time_embs`` takes per-stream step counts ``num_steps`` [B]
-    (lsd_decode_ragged). Returns (cache, x, latent, eos, eos_step, done,
-    normed, first_flow)."""
+    ``i`` is the frame index (host int, 0-d or [B] tensor); the EOS
+    threshold and min-frames are scalars, 0-d or [B] tensors; frame i is
+    emitted, then a stream is done once i >= eos_step + eos_after or i + 1 >=
+    max_frames[b]. A [B, S_max, fd] ``time_embs`` takes per-stream step
+    counts ``num_steps`` [B] (lsd_decode_ragged). ``live``: see decode_step.
+    Returns (cache, x, latent, eos, eos_step, done, normed, first_flow)."""
     normed = layernorm(x, w.out_norm_w, w.out_norm_b, cfg.ln_eps)
     eos = eos_logit(w, normed)
     if eos_enabled:
@@ -463,49 +509,213 @@ def frame_step(w, cache: KVCache, x: torch.Tensor, noise: torch.Tensor,
     done = done | ((eos_step >= 0) & (i >= eos_step + eos_after))
     if max_frames is not None:
         done = done | (i + 1 >= max_frames)
-    cache, x = decode_step(w, cache, _linear(w.input_linear, None, latent), cfg, flags)
+    cache, x = decode_step(w, cache, _linear(w.input_linear, None, latent), cfg, flags, live)
     return cache, x, latent, eos, eos_step, done, normed, flow0
+
+
+# Frames per captured chunk of the offline loop (runtime/graphs): the host
+# reads done.all() once per chunk instead of once per frame. 8 frames are
+# 640 ms of audio: at most 7 frames past the last stream's end run (gated,
+# changing nothing), and a 64-frame bucket takes 8 host checks, not 64.
+GRAPH_CHUNK = 8
+
+# done.all() reads of the offline frame loops in this process (the loop's
+# host syncs; tests and chip_smoke read the difference across a call)
+HOST_CHECKS = 0
+
+
+@dataclasses.dataclass(eq=False)
+class FrameLoop:
+    """The offline frame loop's inputs and carry, all on the device: the
+    state of the JAX package's lax.while_loop (generate_latents_while) and
+    lax.scan (generate_latents). ``advance`` updates it in place, so a
+    captured chunk of frames replays on the same tensors, and a loop kept
+    for one shape is reloaded, not reallocated, by every call."""
+
+    cache: KVCache
+    x: torch.Tensor               # [B, d_model]
+    noise: torch.Tensor           # [B, F, latent]
+    time_embs: torch.Tensor       # [S, flow_dim]
+    eos_threshold: torch.Tensor   # 0-d f32 (1e30: EOS never fires)
+    eos_min_frames: torch.Tensor  # 0-d int32
+    eos_after: torch.Tensor       # [B] int32
+    max_frames: Optional[torch.Tensor]  # [B] int32 per-stream budgets
+    i: torch.Tensor               # 0-d int32 frame index
+    j: torch.Tensor               # 0-d int32 output column (i - frame0)
+    eos_step: torch.Tensor        # [B] int32
+    done: torch.Tensor            # [B] bool
+    used: torch.Tensor            # [B] int32
+    latents: torch.Tensor         # [B, F, latent]
+    eos_logits: torch.Tensor      # [B, F] f32
+    first_cond: torch.Tensor      # [B, d_model]
+    first_flow: torch.Tensor      # [B, latent]
+
+    @classmethod
+    def alloc(cls, cache: KVCache, frames: int, num_steps: int, cfg: FlowLMConfig, dtype,
+              budgets: bool) -> "FrameLoop":
+        B, dev = cache.k.shape[1], cache.k.device
+
+        def zeros(*shape, dt=dtype):
+            return torch.zeros(shape, dtype=dt, device=dev)
+
+        i32 = torch.int32
+        return cls(cache=cache, x=zeros(B, cfg.d_model), noise=zeros(B, frames, cfg.latent_dim),
+                   time_embs=zeros(num_steps, cfg.flow_dim, dt=torch.float32),
+                   eos_threshold=zeros(dt=torch.float32), eos_min_frames=zeros(dt=i32),
+                   eos_after=zeros(B, dt=i32), max_frames=zeros(B, dt=i32) if budgets else None,
+                   i=zeros(dt=i32), j=zeros(dt=i32), eos_step=zeros(B, dt=i32),
+                   done=zeros(B, dt=torch.bool), used=zeros(B, dt=i32),
+                   latents=zeros(B, frames, cfg.latent_dim),
+                   eos_logits=zeros(B, frames, dt=torch.float32),
+                   first_cond=zeros(B, cfg.d_model), first_flow=zeros(B, cfg.latent_dim))
+
+    def load(self, x0, noise, time_embs, eos_threshold, eos_min_frames, eos_after,
+             max_frames_per_stream, frame0: int, eos_step0, done0, used0) -> None:
+        """Refill every input and reset the carry (the cache is the caller's)."""
+        self.x.copy_(x0)
+        self.noise.copy_(noise)
+        self.time_embs.copy_(time_embs)
+        self.eos_threshold.fill_(eos_threshold)
+        self.eos_min_frames.fill_(eos_min_frames)
+        if np.ndim(eos_after) == 0:
+            self.eos_after.fill_(int(eos_after))
+        else:
+            self.eos_after.copy_(torch.as_tensor(eos_after))
+        if self.max_frames is not None:
+            self.max_frames.copy_(max_frames_per_stream)
+        self.i.fill_(frame0)
+        self.j.zero_()
+        for buf, init, empty in ((self.eos_step, eos_step0, -1), (self.done, done0, False),
+                                 (self.used, used0, 0)):
+            if init is None:
+                buf.fill_(empty)
+            else:
+                buf.copy_(init)
+        for buf in (self.latents, self.eos_logits, self.first_cond, self.first_flow):
+            buf.zero_()
+
+    def advance(self, w, n: int, cfg: FlowLMConfig, *, eos_enabled: bool, gate: bool,
+                flags: KernelFlags = DEFAULT_FLAGS) -> None:
+        """``n`` frames through frame_step, in place: JAX's loop body. With
+        ``gate`` a frame that starts with every stream done changes nothing
+        (JAX's while_loop condition), so a chunk may run past the end."""
+        cache, x, i, j = self.cache, self.x, self.i, self.j
+        eos_step, done, used = self.eos_step, self.done, self.used
+        first_cond, first_flow = self.first_cond, self.first_flow
+        for _ in range(n):
+            live = ~done.all() if gate else None
+            col = j.reshape(1).long()
+            was_done = done
+            cache, x_new, latent, eos, eos_step_new, done_new, normed, flow0 = frame_step(
+                w, cache, x, self.noise.index_select(1, col)[:, 0], self.time_embs, i,
+                eos_step, done, cfg, eos_enabled=eos_enabled, eos_threshold=self.eos_threshold,
+                eos_min_frames=self.eos_min_frames, eos_after=self.eos_after,
+                max_frames=self.max_frames, flags=flags, live=live)
+            first = i == 0 if live is None else (i == 0) & live
+            first_cond = torch.where(first, normed, first_cond)
+            first_flow = torch.where(first, flow0, first_flow)
+            used_new = torch.where(was_done, used, i + 1)
+            lat = latent.to(self.latents.dtype)[:, None]
+            eos = eos.float()[:, None]
+            if live is not None:
+                x_new, eos_step_new, done_new, used_new = (
+                    torch.where(live, new, old) for new, old in
+                    ((x_new, x), (eos_step_new, eos_step), (done_new, done), (used_new, used)))
+                lat = torch.where(live, lat, self.latents.index_select(1, col))
+                eos = torch.where(live, eos, self.eos_logits.index_select(1, col))
+            self.latents.index_copy_(1, col, lat)
+            self.eos_logits.index_copy_(1, col, eos)
+            step = 1 if live is None else live.to(torch.int32)
+            i, j = i + step, j + step
+            x, eos_step, done, used = x_new, eos_step_new, done_new, used_new
+        self.cache = cache
+        for dst, src in ((self.x, x), (self.i, i), (self.j, j), (self.eos_step, eos_step),
+                         (self.done, done), (self.used, used), (self.first_cond, first_cond),
+                         (self.first_flow, first_flow)):
+            if src is not dst:
+                dst.copy_(src)
+
+    def result(self, frame0: int, frames: int) -> GenResult:
+        return GenResult(latents=self.latents,
+                         frames_used=torch.where(self.done, self.used, frame0 + frames),
+                         eos_logits=self.eos_logits, first_cond=self.first_cond,
+                         first_flow=self.first_flow, cache=self.cache, x=self.x,
+                         eos_step=self.eos_step, done=self.done)
+
+
+def run_chunks(done: torch.Tensor, frames: int, chunk: int, stop_when_done: bool,
+               advance) -> None:
+    """``frames`` frames as ``advance(n)`` calls of ``chunk`` frames (the
+    last one shorter). With ``stop_when_done`` the host reads done.all()
+    once before each chunk (HOST_CHECKS) and stops once every stream is
+    done: at most ceil(frames / chunk) reads."""
+    global HOST_CHECKS
+    t = 0
+    while t < frames:
+        if stop_when_done:
+            HOST_CHECKS += 1
+            if bool(done.all()):
+                break
+        n = min(chunk, frames - t)
+        advance(n)
+        t += n
+
+
+def static_cache(graphs, cfg: FlowLMConfig, batch: int, max_len: int, dtype,
+                 device) -> KVCache:
+    """The KV cache that ``graphs`` (runtime/graphs.GraphCache) keeps for
+    this shape: the captured frame loop reads it at a fixed address, so
+    prefill_init writes the prompt straight into it."""
+    return graphs.buffers(("kv", batch, max_len, dtype, str(device)),
+                          lambda: make_cache(cfg, batch, max_len, dtype, device))
 
 
 def _frame_loop(w, cache: KVCache, x: torch.Tensor, noise: torch.Tensor, cfg: FlowLMConfig,
                 max_frames: int, num_steps: int, *, stop_when_done: bool, eos_enabled: bool,
                 eos_threshold, eos_min_frames, eos_after, max_frames_per_stream=None,
                 frame0: int = 0, eos_step0=None, done0=None, used0=None,
-                flags: KernelFlags = DEFAULT_FLAGS) -> GenResult:
+                flags: KernelFlags = DEFAULT_FLAGS, graphs=None) -> GenResult:
     """Frames frame0 .. frame0 + max_frames - 1 through frame_step, with the
-    per-stream EOS state and the parity taps of frame 0."""
+    per-stream EOS state and the parity taps of frame 0. Without ``graphs``
+    the frames run eagerly one by one (a host check before each) on a fresh
+    FrameLoop around ``cache``; with ``graphs`` they run in GRAPH_CHUNK-frame
+    chunks, each a graph replay on the loop that ``graphs`` keeps for this
+    shape, over its kept cache (``cache`` must come from prefill_init with
+    the same ``graphs``), and the returned tensors are copies, but for the
+    kept cache."""
     B = x.shape[0]
-    dev = x.device
     time_embs = lsd_time_embeds(w, num_steps, cfg)
-    eos_after = torch.as_tensor(eos_after, dtype=torch.int32, device=dev).expand(B)
-    eos_step = (torch.full((B,), -1, dtype=torch.int32, device=dev)
-                if eos_step0 is None else eos_step0)
-    done = torch.zeros(B, dtype=torch.bool, device=dev) if done0 is None else done0
-    used = torch.zeros(B, dtype=torch.int32, device=dev) if used0 is None else used0
-    latents = x.new_zeros(B, max_frames, cfg.latent_dim)
-    eos_logits = torch.zeros(B, max_frames, dtype=torch.float32, device=dev)
-    first_cond = torch.zeros_like(x)
-    first_flow = x.new_zeros(B, cfg.latent_dim)
-    for j in range(max_frames):
-        if stop_when_done and bool(done.all()):
-            break
-        i = frame0 + j
-        was_done = done
-        cache, x, latent, eos, eos_step, done, normed, flow0 = frame_step(
-            w, cache, x, noise[:, j], time_embs, i, eos_step, done, cfg,
-            eos_enabled=eos_enabled, eos_threshold=eos_threshold,
-            eos_min_frames=eos_min_frames, eos_after=eos_after,
-            max_frames=max_frames_per_stream, flags=flags)
-        if i == 0:
-            first_cond, first_flow = normed, flow0
-        used = torch.where(was_done, used, i + 1)
-        latents[:, j] = latent.to(latents.dtype)
-        eos_logits[:, j] = eos.float()
+    chunk = 1 if graphs is None else GRAPH_CHUNK
+    gate = stop_when_done and chunk > 1
+    load = (x, noise, time_embs, eos_threshold, eos_min_frames, eos_after,
+            max_frames_per_stream, frame0, eos_step0, done0, used0)
+    budgets = max_frames_per_stream is not None
+    if graphs is None:
+        lp = FrameLoop.alloc(cache, max_frames, num_steps, cfg, x.dtype, budgets)
+        lp.load(*load)
+        run_chunks(lp.done, max_frames, chunk, stop_when_done,
+                   lambda n: lp.advance(w, n, cfg, eos_enabled=eos_enabled, gate=gate,
+                                        flags=flags))
+        return lp.result(frame0, max_frames)
 
-    frames_used = torch.where(done, used, frame0 + max_frames)
-    return GenResult(latents=latents, frames_used=frames_used, eos_logits=eos_logits,
-                     first_cond=first_cond, first_flow=first_flow, cache=cache, x=x,
-                     eos_step=eos_step, done=done)
+    dev = cache.k.device
+    kv = static_cache(graphs, cfg, B, cache.max_len, cache.k.dtype, dev)
+    if kv.k.data_ptr() != cache.k.data_ptr():
+        raise ValueError("with graphs, the cache must be the one prefill_init(..., graphs=) "
+                         "filled: the captured loop reads it at its address")
+    shape = (B, cache.max_len, max_frames, num_steps, x.dtype, budgets)
+    lp = graphs.buffers(("frame_loop",) + shape, lambda: FrameLoop.alloc(
+        kv, max_frames, num_steps, cfg, x.dtype, budgets))
+    lp.cache = dataclasses.replace(kv, t0=cache.t0, cursor_host=None)
+    lp.load(*load)
+    body = ("frame_loop",) + shape + (cache.t0, eos_enabled, gate, flags)
+    # one eager chunk warms up, so a call of two chunks or more captures
+    run_chunks(lp.done, max_frames, chunk, stop_when_done,
+               lambda n: graphs.run(body + (n,), dev, lambda: lp.advance(
+                   w, n, cfg, eos_enabled=eos_enabled, gate=gate, flags=flags), warmup=1))
+    res = lp.result(frame0, max_frames)
+    return res._replace(**{f: getattr(res, f).clone() for f in res._fields
+                           if f != "cache" and getattr(res, f) is not None})
 
 
 def generate_latents(
@@ -525,16 +735,19 @@ def generate_latents(
     done0: Optional[torch.Tensor] = None,
     used0: Optional[torch.Tensor] = None,
     flags: KernelFlags = DEFAULT_FLAGS,
+    graphs=None,
 ) -> GenResult:
     """Fixed-length frame loop: all max_frames frames run, with no host sync.
     Resumable: pass the returned cache and x as the next call's cache and
     x0, with frame0 advanced and the returned eos_step/done/frames_used as
-    eos_step0/done0/used0; two calls then equal one call of both lengths."""
+    eos_step0/done0/used0; two calls then equal one call of both lengths.
+    ``graphs`` (runtime/graphs.GraphCache): the frames run as replays of
+    captured GRAPH_CHUNK-frame chunks (see _frame_loop)."""
     return _frame_loop(w, cache, x0, noise, cfg, max_frames, num_steps,
                        stop_when_done=False, eos_enabled=eos_enabled,
                        eos_threshold=eos_threshold, eos_min_frames=eos_min_frames,
                        eos_after=eos_after, frame0=frame0, eos_step0=eos_step0,
-                       done0=done0, used0=used0, flags=flags)
+                       done0=done0, used0=used0, flags=flags, graphs=graphs)
 
 
 def generate_latents_while(
@@ -550,15 +763,18 @@ def generate_latents_while(
     eos_after=0,                # int or [B]
     max_frames_per_stream: Optional[torch.Tensor] = None,  # [B]
     flags: KernelFlags = DEFAULT_FLAGS,
+    graphs=None,
 ) -> GenResult:
     """The frame loop with per-stream EOS state, stopping once every stream
-    is done (one host sync per frame). Frames after that stay zero in the
-    output buffers."""
+    is done, checked on the host before every frame, or with ``graphs``
+    before every GRAPH_CHUNK frames. A frame that starts with every stream
+    done changes nothing, as JAX's while_loop stops there: frames after the
+    end stay zero in the output buffers. ``graphs``: see generate_latents."""
     return _frame_loop(w, cache, x0, noise, cfg, max_frames, num_steps,
                        stop_when_done=True, eos_enabled=True,
                        eos_threshold=eos_threshold, eos_min_frames=eos_min_frames,
                        eos_after=eos_after, max_frames_per_stream=max_frames_per_stream,
-                       flags=flags)
+                       flags=flags, graphs=graphs)
 
 
 def scale_latents(w, latents: torch.Tensor) -> torch.Tensor:

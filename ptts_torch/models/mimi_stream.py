@@ -11,9 +11,11 @@ the whole-sequence models/mimi.decode:
     exact for unbounded audio
 
 The state is a dict of [B, ...] tensors that decode_stream updates in place
-(ring K/V and positions, conv carries), as the offline KV cache is; the ring
-write cursor ``wc`` is a host int shared by the B lockstep streams. The ring
-attention is a plain masked einsum, as the JAX package leaves it to XLA.
+(ring K/V and positions, conv carries, the ring write cursor), as the
+offline KV cache is; the write cursor ``wc`` is a 0-d int32 tensor on the
+device shared by the B lockstep streams, as in the JAX package, so a
+captured step (runtime/graphs) advances it in place. The ring attention is
+a plain masked einsum, as the JAX package leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -95,7 +97,7 @@ def ring_init(cfg: MimiConfig, batch: int, dtype, device) -> State:
         # absolute position of the key in each (stream, slot); -1 = empty
         "kpos": torch.full((batch, RING), -1, dtype=torch.int32, device=device),
         # next free slot column, shared by the lockstep streams
-        "wc": 0,
+        "wc": torch.zeros((), dtype=torch.int32, device=device),
     }
 
 
@@ -123,21 +125,26 @@ def transformer_stream(w, ring: State, x: torch.Tensor,
     All streams advance in lockstep, so the chunk's K/V land in the same
     ring columns [s, s + Tc) for every stream; s wraps to 0 when the chunk
     would run past the ring's end. The stored positions keep the mask exact
-    after a wrap. Updates ``ring`` in place and returns it with the output."""
+    after a wrap. Updates ``ring`` in place (the cursor included) and
+    returns it with the output."""
     B, Tc, d = x.shape
     H, D = cfg.num_heads, cfg.head_dim
     R = ring["k"].shape[2]
+    if Tc > R:
+        raise ValueError(f"a chunk of {Tc} positions does not fit the {R}-slot ring")
     pos0 = ring["pos"]              # advanced in place after the layers
     positions = pos0[:, None] + torch.arange(Tc, device=x.device, dtype=torch.int32)
-    s = ring["wc"] if ring["wc"] + Tc <= R else 0
-    ring["kpos"][:, s : s + Tc] = positions
+    wc = ring["wc"]
+    s = torch.where(wc + Tc <= R, wc, 0)
+    cols = (s + torch.arange(Tc, device=x.device)).long()
+    ring["kpos"].index_copy_(1, cols, positions)
     for l in range(cfg.num_layers):
         xn = layernorm(x, w.norm1_w[l], w.norm1_b[l], cfg.ln_eps)
         qkv = _linear(w.in_proj[l], None, xn)
         q, k, v = (qkv[..., i * d : (i + 1) * d].reshape(B, Tc, H, D) for i in range(3))
         q, k = rope_rotate_halves(q, k, positions, cfg.max_period)
-        ring["k"][l, :, s : s + Tc] = k.to(ring["k"].dtype)
-        ring["v"][l, :, s : s + Tc] = v.to(ring["v"].dtype)
+        ring["k"][l].index_copy_(1, cols, k.to(ring["k"].dtype))
+        ring["v"][l].index_copy_(1, cols, v.to(ring["v"].dtype))
         attn = _ring_attention(q, ring["k"][l], ring["v"][l], ring["kpos"], pos0, Tc,
                                cfg.context)
         add = _linear(w.out_proj[l], None, attn.reshape(B, Tc, d))
@@ -150,7 +157,7 @@ def transformer_stream(w, ring: State, x: torch.Tensor,
             add = add * w.ls2[l]
         x = x + add
     ring["pos"] += Tc
-    ring["wc"] = (s + Tc) % R
+    wc.copy_(torch.remainder(s + Tc, R))
     return ring, x
 
 
@@ -179,6 +186,16 @@ def init_state(w, cfg: MimiConfig, batch: int, dtype=torch.float32) -> State:
         "stages": stages,
         "dec_out": conv_carry_init(batch, cfg.last_kernel_size, 1, cfg.n_filters, dtype, dev),
     }
+
+
+def reset_state(state: State) -> None:
+    """Return ``state`` to init_state's values in place (its tensors keep
+    their addresses, which a captured step reads)."""
+    ring = state["ring"]
+    for t in (ring["k"], ring["v"], ring["pos"], ring["wc"], state["up"], state["dec_in"],
+              state["dec_out"], *(c for st in state["stages"] for c in st.values())):
+        t.zero_()
+    ring["kpos"].fill_(-1)
 
 
 def decode_stream(w, state: State, latents: torch.Tensor,

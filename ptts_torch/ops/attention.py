@@ -117,8 +117,9 @@ def decode_attention_blocked(q: torch.Tensor, k_cache: torch.Tensor, v_cache: to
                              block_t: int = 128) -> torch.Tensor:
     """Online-softmax decode attention that reads the cache only in blocks of
     ``block_t`` columns up to the cursor: ceil((cursor + 1) / block_t) blocks.
-    ``cursor`` (the last valid decode column) is a host int, as the port's
-    KVCache keeps it, so the trip count needs no device read. block_t shrinks
+    ``cursor`` (the last valid decode column) is a host int, from the host
+    mirror of the KVCache's device cursor (KVCache.cursor_host, kept by the
+    eager frame loop), so the trip count needs no device read. block_t shrinks
     until it divides Tmax. Column t of stream b is valid iff t < prefix_len[b]
     or start[b] <= t <= cursor: the cache must not have wrapped (offline
     paths; the continuous batcher's ring refuses this path).

@@ -153,13 +153,16 @@ def gather_batch(parts: Sequence[torch.Tensor], batch_dim: int = 0,
 
 def shard_cache(mesh: Mesh, cache: KVCache) -> List[KVCache]:
     """One flowlm.KVCache per position: k/v [L, B, T, H, D] split at dim 1,
-    prefix_len/start at dim 0; the host-int cursor and t0 are copied."""
+    prefix_len/start at dim 0; each position gets its own copy of the device
+    cursor on its device (the host t0 and cursor mirror are shared)."""
     k = shard_batch_array(mesh, cache.k, 1)
     v = shard_batch_array(mesh, cache.v, 1)
     plen = shard_batch_array(mesh, cache.prefix_len)
     start = shard_batch_array(mesh, cache.start)
-    return [KVCache(k=k[i], v=v[i], prefix_len=plen[i], start=start[i], cursor=cache.cursor,
-                    t0=cache.t0) for i in range(mesh.size)]
+    return [KVCache(k=k[i], v=v[i], prefix_len=plen[i], start=start[i],
+                    cursor=cache.cursor.to(d, copy=True), t0=cache.t0,
+                    cursor_host=cache.cursor_host)
+            for i, d in enumerate(mesh.device_list)]
 
 
 def pad_batch_to_mesh(batch: int, mesh: Mesh) -> int:
@@ -180,7 +183,8 @@ def num_host_groups(mesh: Mesh) -> int:
 def shard_mimi_stream_state(mesh: Mesh, state) -> List[dict]:
     """One mimi_stream state per position. Layout (mimi_stream.init_state):
     every tensor is [B, ...] except the transformer ring K/V, [L, B, RING,
-    H, D] (batch at dim 1); the host-int ring cursor ``wc`` is copied.
+    H, D] (batch at dim 1); each position gets its own copy of the device
+    ring cursor ``wc`` on its device.
     For a streaming state built for the whole mesh and then split; the
     batcher builds each shard's state on its device directly."""
     ring = state["ring"]
@@ -190,8 +194,9 @@ def shard_mimi_stream_state(mesh: Mesh, state) -> List[dict]:
     stages = [{k: shard_batch_array(mesh, v) for k, v in st.items()} for st in state["stages"]]
     return [{
         "up": up[i],
-        "ring": {"k": rk[i], "v": rv[i], "pos": pos[i], "kpos": kpos[i], "wc": ring["wc"]},
+        "ring": {"k": rk[i], "v": rv[i], "pos": pos[i], "kpos": kpos[i],
+                 "wc": ring["wc"].to(d, copy=True)},
         "dec_in": dec_in[i],
         "stages": [{k: parts[i] for k, parts in st.items()} for st in stages],
         "dec_out": dec_out[i],
-    } for i in range(mesh.size)]
+    } for i, d in enumerate(mesh.device_list)]

@@ -9,7 +9,7 @@ fused RoPE + causal attention kernel B1 at [admit_chunk, prefix_budget,
 
 Cache geometry (models/flowlm.KVCache): columns [0, prefix_budget) hold each
 slot's prompt K/V; decode columns form a RING of width max_len -
-prefix_budget driven by the shared host-int cursor, so a slot admitted
+prefix_budget driven by the shared device cursor, so a slot admitted
 mid-flight gets start = cursor and its gap is masked. A recycled ring column
 always belongs to a finished stream, because per-request frames <=
 noise_budget <= ring width, so the pool never compacts.
@@ -48,6 +48,12 @@ Where the port differs from the JAX module, and why:
   * A mesh is explicit (parallel/mesh.py): admission picks a shard and runs
     there; a step launches every shard in turn, each on its own device's
     current stream, starts every shard's readback, and only then waits.
+  * On a CUDA engine with graphs (TTSEngine.graphs) each shard's k-frame
+    step is one CUDA graph replay (runtime/graphs), as the JAX package jits
+    it, for each k it dispatches (frames_per_step, and 1 and
+    frames_per_step - 1 under split_admit). The step updates the shard's
+    state in place, the cursors included, so admission (eager, with B1)
+    writes where the graph reads; the readback stays outside the graph.
 """
 
 from __future__ import annotations
@@ -68,6 +74,7 @@ from ..models import flowlm, mimi_stream
 from ..parallel import mesh as pmesh
 from ..rng import frame_noise
 from ..text import estimate_frames, prepare_text
+from .graphs import GraphCache
 from .streaming import fused_stream_step, fused_stream_steps
 
 # shared zero-length chunk: device-bound collection appends one as a
@@ -258,7 +265,7 @@ def _admit_core(w, cache: flowlm.KVCache, x_all, eos_step, done, frame_idx, mimi
     cache.k[:, :, :T0].index_copy_(1, rows, k_new.to(cache.k.dtype))
     cache.v[:, :, :T0].index_copy_(1, rows, v_new.to(cache.v.dtype))
     cache.prefix_len.index_copy_(0, rows, lengths.to(torch.int32))
-    cache.start.index_fill_(0, rows, cache.cursor)
+    cache.start.index_copy_(0, rows, cache.cursor.expand(rows.shape[0]))
 
     x_all.index_copy_(0, rows, last.to(x_all.dtype))
     eos_step.index_fill_(0, rows, -1)
@@ -436,7 +443,13 @@ class ContinuousBatcher:
     shard, and every step passes the engine's ``flags`` on. The decode ring
     wraps, so an engine whose flags choose the "blocked" decode attention
     (which reads [start, cursor] as one span) is refused at construction,
-    as in the JAX batcher."""
+    as in the JAX batcher.
+
+    On a CUDA engine with graphs on, each shard's step of each k runs
+    eagerly at its first two dispatches, is captured at the third and
+    replayed from then on (runtime/graphs), in capture_error_mode=
+    "thread_local", so handler threads may register voices during a
+    capture."""
 
     @torch.inference_mode()
     def __init__(self, engine, slots: int = 32, max_len: int = 512,
@@ -526,6 +539,8 @@ class ContinuousBatcher:
                 "use 'auto' or 'einsum'")
 
         self._te_cache: Dict[int, np.ndarray] = {}  # num_steps -> padded row
+        # each shard's k-frame step, captured per (shard, k) (engine.graphs)
+        self._graphs = GraphCache() if engine.graphs else None
         self._pinned = _PinnedPool(self._on_card)
         # device voice-cond bank for the ids admission path: a voice's
         # conditioning frames upload ONCE per device; each request ships
@@ -623,9 +638,12 @@ class ContinuousBatcher:
             # decode ring starts after the prefix region
             cache = flowlm.make_cache(cfg, rows, self.max_len, dt, dev)
             cache.start.fill_(self.prefix_budget)
+            # the steps advance the device cursor in place; no host mirror
+            cache = dataclasses.replace(
+                flowlm.seek(cache, self.prefix_budget, self.prefix_budget), cursor_host=None)
             sh = Shard(
                 index=i, host=host, device=dev, fw=fws[dev], mw=mws[dev], row0=row0, n_slots=n,
-                cache=dataclasses.replace(cache, cursor=self.prefix_budget, t0=self.prefix_budget),
+                cache=cache,
                 x=torch.zeros(rows, cfg.d_model, dtype=dt, device=dev),
                 eos_step=torch.full((rows,), -1, dtype=torch.int32, device=dev),
                 done=torch.ones(rows, dtype=torch.bool, device=dev),  # all slots start free
@@ -1152,32 +1170,45 @@ class ContinuousBatcher:
         self._seq += 1
 
     def _dispatch_shard(self, sh: Shard, k: int) -> tuple:
-        """One shard's k-frame step and its readback (buffers, event)."""
+        """One shard's k-frame step (a graph replay with graphs on) and its
+        readback (buffers, event), which stays outside the graph and follows
+        the replay on the stream."""
+        if self._graphs is None:
+            out = self._shard_step(sh, k)
+        else:
+            out = self._graphs.run((sh.index, k), sh.device, lambda: self._shard_step(sh, k))
+        return self._readback(*out)
+
+    def _shard_step(self, sh: Shard, k: int) -> tuple:
+        """One shard's k-frame step, its state updated in place; returns the
+        tensors to read back."""
         mcfg = self.engine.mimi_cfg
-        was_done_dev = sh.done  # the device's pre-step done: exact routing
         # per-slot params written at admission; "EOS disabled" is 1e30
         eos_threshold, eos_min_frames, eos_after, max_frames, num_steps = sh.params_dev
         if k == 1:
-            (sh.cache, sh.mimi_state, sh.x, pcm, _, sh.eos_step, sh.done) = fused_stream_step(
+            # the device's pre-step done: a chunk is live iff not done pre-step
+            wd = None if self.pack_flags else sh.done.clone()
+            (_, _, x, pcm, _, eos_step, done) = fused_stream_step(
                 sh.fw, sh.mw, sh.cache, sh.mimi_state, sh.x, sh.noise_tab, sh.time_embs,
                 sh.frame_idx, sh.eos_step, sh.done, self.cfg, mcfg, True, eos_threshold,
                 eos_min_frames, eos_after, max_frames, num_steps, emit_i16=True,
                 pack_flags=self.pack_flags, flags=self.engine.flags)
-            sh.frame_idx = sh.frame_idx + 1
-            wd = was_done_dev  # [B]: a chunk is live iff not done pre-step
+            frame_idx = sh.frame_idx + 1
         else:
-            (sh.cache, sh.mimi_state, sh.x, pcm, _, sh.eos_step, sh.done, wd,
-             sh.frame_idx) = fused_stream_steps(
+            (_, _, x, pcm, _, eos_step, done, wd, frame_idx) = fused_stream_steps(
                 sh.fw, sh.mw, sh.cache, sh.mimi_state, sh.x, sh.noise_tab, sh.time_embs,
                 sh.frame_idx, sh.eos_step, sh.done, self.cfg, mcfg, True, eos_threshold,
                 eos_min_frames, eos_after, max_frames, num_steps, k=k, emit_i16=True,
                 pack_flags=self.pack_flags, flags=self.engine.flags)
             # pcm [k, B, S(+2)]; wd [k, B] per-frame pre-step done
+        for dst, src in ((sh.x, x), (sh.eos_step, eos_step), (sh.done, done),
+                         (sh.frame_idx, frame_idx)):
+            dst.copy_(src)
         if not self.collect_pcm:
-            return self._readback(_combine_flags(wd, sh.done))
+            return (_combine_flags(wd, done),)
         if self.pack_flags:
-            return self._readback(pcm)
-        return self._readback(pcm, sh.done, wd)
+            return (pcm,)
+        return (pcm, done, wd)
 
     def _read_step(self, rbs) -> List[np.ndarray]:
         """Wait for one step's readbacks, shard by shard; the host arrays

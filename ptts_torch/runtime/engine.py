@@ -11,14 +11,20 @@ same host noise (rng.frame_noise).
 
 The kernel switches (config.KernelFlags, from the environment by
 flags_from_env) are resolved once at construction into ``prefill_impl`` and
-``window_impl``. Unlike the JAX engine there is no degradation from a
-failing kernel to its plain version: on a CUDA device the chosen kernels run
-or the call raises, the plain versions run only where a switch asked for
-them, and an engine asked for ``cuda`` never runs on the CPU.
+``window_impl``. On a CUDA device the frame loops replay CUDA graphs
+(runtime/graphs), as the JAX engine runs jitted loops: the offline loop in
+chunks of flowlm.GRAPH_CHUNK frames, the serving step and the streaming
+frame whole (``graphs``; ``TTSEngine(ctx, graphs=False)`` runs them
+eagerly). Prefill (B1) and the offline Mimi decode (B2) stay eager. Unlike
+the JAX engine there is no degradation from a failing kernel to its plain
+version: on a CUDA device the chosen kernels run or the call raises, the
+plain versions run only where a switch asked for them, and an engine asked
+for ``cuda`` never runs on the CPU.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -36,6 +42,7 @@ from ..text import estimate_frames, prepare_text
 from ..utils import sanitize
 from ..utils.compile_cache import enable_persistent_cache
 from ..utils.timing import GLOBAL_STATS, span
+from .graphs import GraphCache
 
 
 def flags_from_env() -> KernelFlags:
@@ -82,13 +89,15 @@ class GenerateOutput:
 class TTSEngine:
     def __init__(self, ctx, dtype: Optional[torch.dtype] = None,
                  prefix_bucket: int = 64, frame_bucket: int = 64,
-                 flags: Optional[KernelFlags] = None):
+                 flags: Optional[KernelFlags] = None, graphs: Optional[bool] = None):
         """``ctx`` is a ptts_torch.api.Context; the engine runs on
         ``ctx.device``. dtype: float32 (default, the parity mode) or
         bfloat16 (PTTS_DTYPE=bf16). flags: the kernel switches (default
         flags_from_env()); a "kernel" switch on a CPU engine raises
-        ValueError. ``weights_s`` holds the seconds of the weight load:
-        checkpoint read, host pack and the copy to the device."""
+        ValueError. graphs: replay the frame loops as CUDA graphs (default:
+        on a CUDA device; True on a CPU engine raises ValueError).
+        ``weights_s`` holds the seconds of the weight load: checkpoint
+        read, host pack and the copy to the device."""
         if dtype is None:
             dtype = torch.bfloat16 if os.environ.get("PTTS_DTYPE") == "bf16" else torch.float32
         self.device = torch.device(ctx.device)
@@ -100,6 +109,12 @@ class TTSEngine:
         self.flags = flags if flags is not None else flags_from_env()
         self.prefill_impl = flowlm.resolve_prefill_impl(self.flags.prefill_impl, self.device)
         self.window_impl = mimi.resolve_window_impl(self.flags.window_impl, self.device)
+        on_card = self.device.type == "cuda"
+        if graphs and not on_card:
+            raise ValueError(f"graphs=True: CUDA graphs need a CUDA engine, not {self.device}")
+        self._graphs_on = on_card if graphs is None else bool(graphs)
+        # the offline loop's captured chunks and the static buffers they read
+        self._graphs = GraphCache()
         if dtype == torch.float32:
             # f32 parity: cuDNN would otherwise run the SEANet convs in TF32
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -132,6 +147,15 @@ class TTSEngine:
         self.mw = mimi.to_device(mw_host, dtype, self.mimi_cfg, self.device, load)
         self.weights_s = load
         self._voice_cache: dict = {}
+
+    @property
+    def graphs(self) -> bool:
+        """Whether the frame loops replay CUDA graphs: on for a CUDA engine
+        unless constructed with graphs=False, and off, from the flags at
+        each call, for the blocked decode attention (its trip count is a
+        host int) and validate mode (it reads values back every layer)."""
+        return (self._graphs_on and self.flags.decode_impl != "blocked"
+                and not self.flags.validate)
 
     # -- prompt assembly -----------------------------------------------------
 
@@ -171,9 +195,11 @@ class TTSEngine:
         eos_after: Optional[np.ndarray] = None,   # [B] per-stream override
         frames_each: Optional[np.ndarray] = None,  # [B] per-stream budgets
     ) -> flowlm.GenResult:
-        """Prefill + per-frame loop for B ragged streams. The loop stops at
+        """Prefill + frame loop for B ragged streams. The loop stops at
         each stream's true budget (``frames_each``, default max_frames) or
-        EOS, whichever comes first, not at the frame bucket."""
+        EOS, whichever comes first, not at the frame bucket. With graphs
+        the prompt lands in the cache the captured loop reads, and the host
+        checks for the end once per flowlm.GRAPH_CHUNK frames."""
         cfg = self.flowlm_cfg
         B = len(prefixes)
         lengths = np.array([len(p) for p in prefixes], np.int32)
@@ -197,22 +223,25 @@ class TTSEngine:
         elif noise.shape[1] > frames:
             noise = noise[:, :frames]
 
-        cache, x0 = flowlm.prefill_init(self.fw, self._tensor(padded),
-                                        self._tensor(lengths, torch.int32), cfg, T0 + frames,
-                                        self.prefill_impl)
         budgets = np.broadcast_to(
             np.asarray(frames_each if frames_each is not None else max_frames, np.int32), (B,))
-        res = flowlm.generate_latents_while(
-            self.fw, cache, x0, self._tensor(noise), cfg,
-            max_frames=frames, num_steps=params.num_steps,
-            # EOS disabled == a threshold that can never fire
-            eos_threshold=params.eos_threshold if params.eos_enabled else 1e30,
-            eos_min_frames=params.eos_min_frames,
-            eos_after=self._tensor(eos_after if eos_after is not None else params.eos_after,
-                                   torch.int32),
-            max_frames_per_stream=self._tensor(budgets, torch.int32),
-            flags=self.flags,
-        )
+        graphs = self._graphs if self.graphs else None
+        # the graph path's static cache and loop are shared by every call
+        with self._graphs.lock if graphs is not None else contextlib.nullcontext():
+            cache, x0 = flowlm.prefill_init(self.fw, self._tensor(padded),
+                                            self._tensor(lengths, torch.int32), cfg,
+                                            T0 + frames, self.prefill_impl, graphs=graphs)
+            res = flowlm.generate_latents_while(
+                self.fw, cache, x0, self._tensor(noise), cfg,
+                max_frames=frames, num_steps=params.num_steps,
+                # EOS disabled == a threshold that can never fire
+                eos_threshold=params.eos_threshold if params.eos_enabled else 1e30,
+                eos_min_frames=params.eos_min_frames,
+                eos_after=self._tensor(eos_after if eos_after is not None else params.eos_after,
+                                       torch.int32),
+                max_frames_per_stream=self._tensor(budgets, torch.int32),
+                flags=self.flags, graphs=graphs,
+            )
         # cap frames_used at the caller's true max (bucketing may exceed it)
         capped = torch.clamp(res.frames_used, max=max_frames)
         sanitize.check_finite("generate_latents_batch", res.latents, res.eos_logits,
@@ -275,10 +304,13 @@ class TTSEngine:
     def warmup(self, batch_sizes: Sequence[int] = (1,),
                num_frames: Optional[int] = None, decode_audio: bool = True) -> float:
         """Run the pipeline once per batch size at the engine's shape buckets
-        (builds the kernels, fills the allocator's pools). Returns wall seconds."""
+        (builds the kernels, fills the allocator's pools) with EOS off, so
+        that with graphs every chunk of the frame loop runs: the first
+        chunk warms up, the second captures the chunk's graph, as the JAX
+        engine's warm-up compiles. Returns wall seconds."""
         t0 = time.perf_counter()
         frames = num_frames if num_frames else self.frame_bucket
-        p = api.Params(num_steps=1, seed=0).normalized()
+        p = api.Params(num_steps=1, seed=0, eos_enabled=False).normalized()
         prefix = np.zeros((self.prefix_bucket, self.flowlm_cfg.d_model), np.float32)
         for B in batch_sizes:
             res = self.generate_latents_batch([prefix] * B, frames, p)

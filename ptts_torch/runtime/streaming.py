@@ -8,11 +8,13 @@ streams:
 
 Each step runs one FlowLM frame and one streaming-Mimi chunk on the
 engine's device (fused_stream_step) and quantizes the chunk to int16 there.
-The session's per-frame host work is the launches and one readback: the
-noise table is uploaded once at start and each frame's row is gathered on
-the device, the frame index is a host int, and the chunk with its liveness
-flags comes back in one copy into pinned host memory, overlapped with the
-next frame's device work.
+The session's per-frame host work is one launch sequence and one readback:
+the noise table is uploaded once at start and each frame's row is gathered
+on the device at the frame index, a device counter (as are the KV and Mimi
+ring cursors), and the chunk with its liveness flags comes back in one copy
+into pinned host memory, overlapped with the next frame's device work. With
+engine.graphs the frame is one CUDA graph replay (runtime/graphs), the
+counterpart of the JAX package's jitted fused_stream_step.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from ..config import FlowLMConfig, KernelFlags
 from ..models import flowlm, mimi_stream
 from ..rng import frame_noise
 from ..text import estimate_frames, prepare_text
+from .graphs import GraphCache
 
 
 def flow_frame_step(w, cache: flowlm.KVCache, x: torch.Tensor, noise: torch.Tensor,
@@ -60,8 +63,9 @@ def quantize_i16_device(pcm: torch.Tensor) -> torch.Tensor:
 
 
 def _noise_rows(noise_tab: torch.Tensor, frame_idx) -> torch.Tensor:
-    """Row frame_idx (host int or [B], clamped to the table) of each
-    stream's [B, F, latent] noise table, gathered on the device."""
+    """Row frame_idx (clamped to the table) of each stream's [B, F, latent]
+    noise table, gathered on the device: a 0-d or [B] device index, or, for
+    eager callers, a host int."""
     last = noise_tab.shape[1] - 1
     if isinstance(frame_idx, int):
         return noise_tab[:, min(max(frame_idx, 0), last)]
@@ -166,7 +170,11 @@ class StreamingSession:
 
     All state lives in inference tensors: construction, ``_dispatch`` and
     ``step`` each run under ``torch.inference_mode()``, so a caller may
-    iterate from plain code (Context.stream is such a generator).
+    iterate from plain code (Context.stream is such a generator). With
+    engine.graphs the frame runs eagerly at the session's first two
+    dispatches (graphs.WARMUP: the first chunk never waits for a capture),
+    is captured at the third and replayed from then on; its parameters are
+    fixed for the session, so the graph belongs to the session.
     """
 
     @torch.inference_mode()
@@ -206,6 +214,11 @@ class StreamingSession:
         self.done = torch.zeros(B, dtype=torch.bool, device=engine.device)
         self.eos_after = engine._tensor(eos_after, torch.int32)
         self.frame = 0                      # next frame index to dispatch
+        self._frame_dev = torch.zeros((), dtype=torch.int32, device=engine.device)
+        self._graphs = GraphCache() if engine.graphs else None
+        if self._graphs is not None:
+            # replays advance the device cursor without the host seeing it
+            self.cache = dataclasses.replace(self.cache, cursor_host=None)
         self.frames_used = np.zeros(B, np.int64)
         self.pipeline = pipeline
         self._pending = None                # (frame index, readback slot) not yet read
@@ -247,21 +260,35 @@ class StreamingSession:
             return False
         return self.frame >= self.max_frames or self._host_all_done
 
-    @torch.inference_mode()
-    def _dispatch(self) -> None:
-        """Launch one frame; start its chunk's copy to the host."""
+    def _frame_body(self):
+        """One frame, the session's state updated in place; returns the
+        packed int16 chunk and the f32 EOS logits to read back."""
         engine = self.engine
-        (self.cache, self.mimi_state, self.x, pcm, eos,
-         self.eos_step, self.done) = fused_stream_step(
+        cache, _, x, pcm, eos, eos_step, done = fused_stream_step(
             engine.fw, engine.mw, self.cache, self.mimi_state, self.x, self._noise_dev,
-            self.time_embs, self.frame, self.eos_step, self.done, self.cfg,
+            self.time_embs, self._frame_dev, self.eos_step, self.done, self.cfg,
             engine.mimi_cfg, bool(self.params.eos_enabled), self.params.eos_threshold,
             self.params.eos_min_frames, self.eos_after, self.frames_each,
             emit_i16=True, pack_flags=True, flags=engine.flags)
+        self.cache = cache  # the same tensors; the eager path's cursor mirror advanced
+        self.x.copy_(x)
+        self.eos_step.copy_(eos_step)
+        self.done.copy_(done)
+        self._frame_dev.add_(1)
+        return pcm, eos.float()
+
+    @torch.inference_mode()
+    def _dispatch(self) -> None:
+        """Launch one frame (a graph replay with graphs on); start its
+        chunk's copy to the host, which follows it on the stream."""
+        if self._graphs is None:
+            pcm, eos = self._frame_body()
+        else:
+            pcm, eos = self._graphs.run("frame", self.engine.device, self._frame_body)
         slot = self.frame % len(self._slots)
         pcm_host, eos_host, ready = self._slots[slot]
         pcm_host.copy_(pcm, non_blocking=True)
-        eos_host.copy_(eos.float(), non_blocking=True)
+        eos_host.copy_(eos, non_blocking=True)
         if ready is not None:
             ready.record()
         self._pending = (self.frame, slot)

@@ -8,7 +8,9 @@ audio could be shipped to a client). The steady per-frame cost is the
 slope between two frame counts, each ended by a fence (synchronize, then a
 scalar readback), so the fence's fixed cost cancels. Per-frame host
 readback of every chunk is timed serial and pipelined (a non-blocking copy
-into pinned host memory, waited for one frame later).
+into pinned host memory, waited for one frame later). On the card each frame
+is one CUDA graph replay (runtime/graphs), captured in the warm-up run, over
+state that every run refills in place; ``detail.graphs`` says so.
 
     python -m ptts_torch.tools.bench_streaming [--batch 256] [--frames 50]
         [--prefix 64] [--dtype bf16] [--repeats 5]
@@ -29,6 +31,7 @@ import torch
 
 from ..bench import DTYPES, configs, device_info, device_weights, fence, require_card
 from ..models import flowlm, mimi_stream
+from ..runtime.graphs import GraphCache
 from ..runtime.streaming import fused_stream_step
 
 
@@ -46,35 +49,52 @@ def run_streaming_bench(batch: int = 256, frames: int = 50, prefix: int = 64,
     rng = np.random.default_rng(0)
     prompt = torch.from_numpy(rng.standard_normal((B, T0, cfg.d_model)) * 0.02).to(dt).to(dev)
     lengths = torch.full((B,), T0, dtype=torch.int32, device=dev)
-    noise_all = torch.from_numpy(rng.standard_normal((F, B, cfg.latent_dim)) * 0.8).to(dt).to(dev)
+    # [B, F, latent]: each frame's row is gathered on the device at the frame index
+    noise_all = (torch.from_numpy(rng.standard_normal((F, B, cfg.latent_dim)) * 0.8).to(dt)
+                 .transpose(0, 1).contiguous().to(dev))
     eos_after = torch.zeros(B, dtype=torch.int32, device=dev)
     prefill_impl = flowlm.resolve_prefill_impl("auto", dev)
+    graphs = GraphCache() if dev.type == "cuda" else None
     with torch.inference_mode():
         time_embs = flowlm.lsd_time_embeds(fw, 1, cfg)
-
-    def start():
+        # the state every run refills in place: the graph's fixed addresses
         cache = flowlm.make_cache(cfg, B, T0 + F, dt, dev)
-        cache, x = flowlm.prefill(fw, cache, prompt, lengths, cfg, prefill_impl)
+        state = mimi_stream.init_state(mw, mcfg, B, dt)
+        x = torch.zeros(B, cfg.d_model, dtype=dt, device=dev)
         eos_step = torch.full((B,), -1, dtype=torch.int32, device=dev)
         done = torch.zeros(B, dtype=torch.bool, device=dev)
-        return cache, mimi_stream.init_state(mw, mcfg, B, dt), x, eos_step, done
+        frame = torch.zeros((), dtype=torch.int32, device=dev)
 
-    def step(s, i):
-        cache, state, x, eos_step, done = s
-        cache, state, x, pcm, _, eos_step, done = fused_stream_step(
-            fw, mw, cache, state, x, noise_all[i], time_embs, i, eos_step, done, cfg, mcfg,
+    def start():
+        _, x0 = flowlm.prefill(fw, cache, prompt, lengths, cfg, prefill_impl)
+        x.copy_(x0)
+        eos_step.fill_(-1)
+        done.zero_()
+        frame.zero_()
+        mimi_stream.reset_state(state)
+
+    def body():
+        _, _, x1, pcm, _, eos1, done1 = fused_stream_step(
+            fw, mw, cache, state, x, noise_all, time_embs, frame, eos_step, done, cfg, mcfg,
             False, -4.0, 1, eos_after)
-        return (cache, state, x, eos_step, done), pcm
+        x.copy_(x1)
+        eos_step.copy_(eos1)
+        done.copy_(done1)
+        frame.add_(1)
+        return pcm
+
+    def step():
+        return body() if graphs is None else graphs.run("frame", dev, body)
 
     @torch.inference_mode()
     def run(n_frames: int, readback_first: bool) -> tuple:
         """(time to first chunk on the host or None, total), both from the
         start of the prefill, ended by a fence."""
         t_start = time.perf_counter()
-        s = start()
+        start()
         first = pcm = None
         for i in range(n_frames):
-            s, pcm = step(s, i)
+            pcm = step()
             if i == 0 and readback_first:
                 pcm.cpu()  # the first chunk on the host (a synchronous copy)
                 first = time.perf_counter() - t_start
@@ -87,11 +107,11 @@ def run_streaming_bench(batch: int = 256, frames: int = 50, prefix: int = 64,
         pinned host memory is started without waiting and waited for after
         frame i + 1 is issued, so the device computes while the chunk
         crosses."""
-        s = start()
+        start()
         pend = None
         t_start = time.perf_counter()
         for i in range(n_frames):
-            s, pcm = step(s, i)
+            pcm = step()
             if not pipelined:
                 pcm.cpu()
                 continue
@@ -137,6 +157,7 @@ def run_streaming_bench(batch: int = 256, frames: int = 50, prefix: int = 64,
             "streaming_streams_per_chip": B * 80.0 / steady,
             "realtime_budget_ms_per_frame": 80.0,
             "dtype": dtype_name,
+            "graphs": graphs is not None,
             "device": device_info() if dev.type == "cuda" else {"name": dev.type},
         },
     }

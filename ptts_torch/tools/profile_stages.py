@@ -16,7 +16,9 @@ are made and waited for before each timed pass: the ar window holds
 generate_latents_while alone, on a cache prefilled just before it, and
 its per_frame_* figures divide by its frames. Windows stay
 short: one pass per stage, and the ar stage over its first 8 frames
-(exporting a large trace has brought a run down).
+(exporting a large trace has brought a run down). On the card the ar stage
+replays the frame loop as a CUDA graph (runtime/graphs), as the engine
+does, captured in its warm-up passes; the JSON line says ``graphs``.
 
     python -m ptts_torch.tools.profile_stages [stage ...]     # default: all
 Env: PTTS_BENCH_BATCH (256), PTTS_BENCH_FRAMES (50), PTTS_BENCH_DTYPE (bf16).
@@ -36,6 +38,7 @@ from ..bench import (DTYPES, T0, bench_inputs, configs, device_info, device_weig
 from ..models import flowlm, mimi
 from ..models.flowlm import _linear
 from ..ops.conv import convtr1d_2s
+from ..runtime.graphs import GraphCache
 from ..utils import profiling
 
 STAGES = ("prefill", "ar", "scale", "upsample", "transformer", "convstack")
@@ -65,6 +68,7 @@ def run_profile_stages(stages=("all",), batch: int = 256, frames: int = 50,
     max_len = T0 + frame_bucket
     pimpl = flowlm.resolve_prefill_impl("auto", dev)
     win = mimi.resolve_window_impl("auto", dev)
+    graphs = GraphCache() if dev.type == "cuda" else None
     results = {}
 
     def wait():
@@ -111,14 +115,14 @@ def run_profile_stages(stages=("all",), batch: int = 256, frames: int = 50,
         return out
 
     def prefilled():
-        return flowlm.prefill_init(fw, prefix, lengths, cfg, max_len, pimpl)
+        return flowlm.prefill_init(fw, prefix, lengths, cfg, max_len, pimpl, graphs=graphs)
 
     def generate(n_frames, cache, x0):
         return flowlm.generate_latents_while(
             fw, cache, x0, noise, cfg, max_frames=frame_bucket, num_steps=1,
             eos_threshold=1e9, eos_min_frames=1, eos_after=0,
             max_frames_per_stream=torch.full((batch,), n_frames, dtype=torch.int32,
-                                             device=dev)).latents
+                                             device=dev), graphs=graphs).latents
 
     # --- FlowLM ---
     profiled("prefill", lambda: prefilled()[1])
@@ -156,7 +160,7 @@ def main(argv=None) -> int:
     dtype_name = os.environ.get("PTTS_BENCH_DTYPE", "bf16")
     results = run_profile_stages(stages, batch, frames, dtype_name)
     print(json.dumps({"batch": batch, "frames": frames, "dtype": dtype_name,
-                      "ar_frames": min(frames, AR_FRAMES), "stages": results,
+                      "ar_frames": min(frames, AR_FRAMES), "graphs": True, "stages": results,
                       "device": device_info()}))
     return 0
 

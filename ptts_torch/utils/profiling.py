@@ -124,6 +124,25 @@ def busy_us(trace_dir: str) -> float:
     return busy
 
 
+def launch_calls(trace_dir: str) -> Dict[str, int]:
+    """The host's launch calls in the newest trace in trace_dir, from its
+    CUDA runtime and driver events: "kernel" (cudaLaunchKernel and kin),
+    "graph" (cudaGraphLaunch: one replays a whole captured graph) and
+    "copy" (memcpy and memset calls)."""
+    out = {"kernel": 0, "graph": 0, "copy": 0}
+    for e in _events(trace_dir):
+        if e.get("cat") not in ("cuda_runtime", "cuda_driver"):
+            continue
+        name = str(e.get("name", ""))
+        if "GraphLaunch" in name:
+            out["graph"] += 1
+        elif "LaunchKernel" in name:
+            out["kernel"] += 1
+        elif "Memcpy" in name or "Memset" in name:
+            out["copy"] += 1
+    return out
+
+
 def top_ops(trace_dir: str, n: int = 20) -> List[Tuple[str, dict]]:
     agg = summarize_trace(trace_dir)
     return sorted(agg.items(), key=lambda kv: -kv[1]["total_us"])[:n]

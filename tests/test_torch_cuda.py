@@ -9,7 +9,8 @@ there without the conftest:
 Gates (max error relative to the largest reference value): 1e-4 in f32,
 5e-2 in bf16 for a kernel against its plain version on the same inputs;
 1e-3 for the engine and the streaming session on the card against the same
-on the CPU.
+on the CPU; bit-equal for a loop replayed as a CUDA graph against the same
+loop run eagerly.
 """
 
 import numpy as np
@@ -404,3 +405,112 @@ def test_packed_bf16_load_on_card(dev, tmp_path):
     assert np.isfinite(out.audio.samples).all() and out.frames_used == 3
     assert {d for d, _, _ in fa.causal_attention_qkv.shapes} == {"bf16"}
     assert {d for d, _, _ in fa.window_attention_qkv.shapes} == {"bf16"}
+
+
+# -- CUDA graphs (runtime/graphs): replay against eager ------------------------
+
+
+def graph_engines(tmp_path):
+    """Two engines on one small model on the card: graphs on (the default)
+    and off."""
+    from ptts_torch.runtime.engine import TTSEngine
+
+    path, fc, mc = small_model(tmp_path)
+    ctx = api.load_dir(path, flowlm_cfg=fc, mimi_cfg=mc, device="cuda")
+    eager = TTSEngine(ctx, graphs=False)
+    assert ctx.engine.graphs and not eager.graphs
+    return ctx.engine, eager
+
+
+def test_graph_offline_loop_equals_eager(dev, tmp_path):
+    """generate_full (EOS on, EOS off) and a ragged batch_generate replayed
+    in chunks of flowlm.GRAPH_CHUNK frames: bit-equal to the eager engine,
+    with at most one done-check per chunk."""
+    from ptts_torch.models import flowlm
+    from ptts_torch.runtime import graphs
+
+    eng, eager = graph_engines(tmp_path)
+    texts = ["Hello world!", "A second, longer stream.", "Three.", "Four, five, six."]
+    captures = graphs.STATS["captures"]
+    for p in (api.Params(seed=3, num_frames=40, num_steps=2, eos_threshold=-0.5),
+              api.Params(seed=4, num_frames=27, eos_enabled=False)):
+        checks = flowlm.HOST_CHECKS
+        a = eng.generate_full(texts[0], params=p)
+        assert flowlm.HOST_CHECKS - checks <= -(-64 // flowlm.GRAPH_CHUNK)
+        b = eager.generate_full(texts[0], params=p)
+        assert a.frames_used == b.frames_used
+        np.testing.assert_array_equal(a.latents, b.latents)
+        np.testing.assert_array_equal(a.first_cond, b.first_cond)
+        np.testing.assert_array_equal(a.audio.samples, b.audio.samples)
+        for x, y in zip(eng.batch_generate(texts, params=p), eager.batch_generate(texts, params=p)):
+            np.testing.assert_array_equal(x.samples, y.samples)
+    assert graphs.STATS["captures"] > captures
+
+
+def test_graph_session_equals_eager(dev, tmp_path, monkeypatch):
+    """StreamingSession replayed, B = 1 and 3, 32 frames, the Mimi ring cut
+    to 32 slots so that it wraps: every chunk bit-equal to the eager
+    session's."""
+    from ptts_torch.models import mimi_stream
+
+    monkeypatch.setattr(mimi_stream, "RING", 32)
+    eng, eager = graph_engines(tmp_path)
+    texts = ["Hello world!", "A second, longer stream.", "Three."]
+    p = api.Params(seed=5, num_frames=32, eos_enabled=False)
+    for B in (1, 3):
+        a = list(StreamingSession.start(eng, texts[:B], params=p))
+        b = list(StreamingSession.start(eager, texts[:B], params=p))
+        assert len(a) == len(b) == 32
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x.pcm_i16, y.pcm_i16)
+            np.testing.assert_array_equal(x.active, y.active)
+
+
+@pytest.mark.parametrize("kw", [dict(frames_per_step=1), dict(frames_per_step=4, split_admit=True)],
+                         ids=["k1", "k4_split"])
+def test_graph_batcher_equals_eager(dev, tmp_path, monkeypatch, kw):
+    """The batcher's shard step replayed at k = 1 and at k = 4 with
+    split_admit: 16 requests of 10-15 frames through 4 slots, past the
+    16-column FlowLM ring and the Mimi ring cut to 96 slots (it wraps every
+    6 frames; a 4-frame chunk is 64 positions); results bit-equal to the
+    eager batcher's."""
+    from ptts_torch.models import mimi_stream
+    from ptts_torch.runtime.batching import ContinuousBatcher
+
+    monkeypatch.setattr(mimi_stream, "RING", 96)
+    eng, eager = graph_engines(tmp_path)
+
+    def run(engine):
+        b = ContinuousBatcher(engine, slots=4, admit_chunk=2, prefix_budget=64, max_len=80, **kw)
+        rids = [b.submit(f"Request number {i}.", params=api.Params(
+            seed=7, num_frames=10 + i % 6, eos_enabled=False)) for i in range(16)]
+        return rids, b.drain(), b
+
+    rids, got, b = run(eng)
+    _, want, _ = run(eager)
+    assert int(b.shards[0].cache.cursor) - b.prefix_budget > 2 * (b.max_len - b.prefix_budget)
+    assert len(b._graphs) >= 1
+    for rid in rids:
+        assert got[rid].frames == want[rid].frames
+        np.testing.assert_array_equal(got[rid].pcm_i16, want[rid].pcm_i16)
+
+
+def test_graph_capture_error_propagates(dev):
+    """A body that syncs the host cannot be captured: the error reaches the
+    caller (no eager fallback) at each capture attempt, and nothing is kept."""
+    from ptts_torch.runtime import graphs
+
+    cache = graphs.GraphCache()
+    x = torch.ones(4, device=dev)
+
+    def body():
+        x.add_(1)
+        return x * float(x.sum().item())
+
+    for _ in range(graphs.WARMUP):  # the eager warm-up runs
+        cache.run("k", dev, body)
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            cache.run("k", dev, body)
+        assert len(cache) == 0
+    torch.cuda.synchronize()

@@ -97,8 +97,27 @@ NOISE_CASES = [(1, 0.7, 0.0), (12345, 0.7, 0.0), (-1, 0.4, 0.0), (2**40 + 7, 1.0
                (0, 0.0, 0.0), (77, 0.3, 0.25)]
 
 
+@pytest.fixture(scope="module")
+def private_jax_native(tmp_path_factory):
+    """The JAX package's host library, built by its own code from the same
+    csrc/ptts_host.cpp into a directory of this module's alone. That build
+    writes its .so in place, so processes that build it at once in the shared
+    location can load a half-written file and fall back to Python for good;
+    a private path keeps the comparison off that race. The module's state is
+    restored afterwards."""
+    so = str(tmp_path_factory.mktemp("jax_native") / "libptts_host.so")
+    saved = {k: getattr(jnative, k) for k in ("_SO", "_STAMP", "_tried", "_lib")}
+    for k, v in {"_SO": so, "_STAMP": so + ".sha256", "_tried": False, "_lib": None}.items():
+        setattr(jnative, k, v)
+    yield
+    for k, v in saved.items():
+        setattr(jnative, k, v)
+
+
 @pytest.mark.parametrize("seed,temp,clamp", NOISE_CASES)
-def test_frame_noise_native_bit_equal(seed, temp, clamp):
+def test_frame_noise_native_bit_equal(seed, temp, clamp, private_jax_native):
+    assert tnative.available(), "the port's host library (ptts_torch.native) did not load"
+    assert jnative.available(), "the JAX package's host library (ptts_tpu.native) did not load"
     got = trng.frame_noise(seed, 9, 32, temp, clamp)
     want = jrng.frame_noise(seed, 9, 32, temp, clamp)
     assert got.dtype == want.dtype == np.float32

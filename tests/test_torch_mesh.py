@@ -138,9 +138,11 @@ def test_batch_pieces_split_and_gather(mesh8):
     cache = tfl.make_cache(FC, 16, 12)
     cache.k.copy_(torch.arange(cache.k.numel(), dtype=torch.float32).view_as(cache.k))
     cache.prefix_len.copy_(torch.arange(16, dtype=torch.int32))
-    cache = dataclasses.replace(cache, cursor=9, t0=7)
+    cache = tfl.seek(cache, 9, 7)
     caches = pmesh.shard_cache(mesh8, cache)
-    assert all(c.cursor == 9 and c.t0 == 7 for c in caches)
+    assert all(int(c.cursor) == 9 and c.t0 == 7 and c.cursor_host == 9 for c in caches)
+    # each position advances its own device cursor
+    assert len({c.cursor.data_ptr() for c in caches} | {cache.cursor.data_ptr()}) == 9
     assert all(c.k.shape == (FC.num_layers, 2, 12, FC.num_heads, FC.head_dim) for c in caches)
     assert torch.equal(pmesh.gather_batch([c.k for c in caches], batch_dim=1), cache.k)
     assert [c.prefix_len.tolist() for c in caches][3] == [6, 7]
@@ -150,9 +152,10 @@ def test_batch_pieces_split_and_gather(mesh8):
     state = mimi_stream.init_state(convert.mimi_weights(jmi.random_weights(MC, seed=1), MC), MC,
                                    16)
     state["ring"]["kpos"].copy_(torch.arange(16, dtype=torch.int32)[:, None])
-    state["ring"]["wc"] = 5
+    state["ring"]["wc"].fill_(5)
     states = pmesh.shard_mimi_stream_state(mesh8, state)
-    assert len(states) == 8 and all(s["ring"]["wc"] == 5 for s in states)
+    assert len(states) == 8 and all(int(s["ring"]["wc"]) == 5 for s in states)
+    assert len({s["ring"]["wc"].data_ptr() for s in states}) == 8
     assert states[2]["ring"]["k"].shape[1] == 2 and states[2]["up"].shape[0] == 2
     assert states[2]["ring"]["kpos"][:, 0].tolist() == [4, 5]
     assert len(states[0]["stages"]) == len(MC.ratios)
@@ -426,13 +429,15 @@ def test_dryrun_multichip_on_cpu():
 
 def test_entry_runs_on_cpu():
     """entry()'s frame step and arguments, built here for a small FlowLM
-    (entry itself is full size): one call advances the cache cursor and
-    returns finite [8, ...] outputs."""
+    (entry itself is full size): one call advances the cache's device cursor
+    in place (and its host mirror) and returns finite [8, ...] outputs."""
     cfg = dataclasses.replace(FC, vocab=17)
     fn, args = dryrun._frame_step_fn(cfg), dryrun._frame_step_args(cfg, "cpu")
+    before = int(args[1].cursor)
     with torch.inference_mode():
         cache, x, latent, eos = fn(*args)
-    assert cache.cursor == args[1].cursor + 1
+    assert cache.cursor is args[1].cursor and int(cache.cursor) == before + 1
+    assert cache.cursor_host == args[1].cursor_host + 1 == before + 1
     assert x.shape == (8, cfg.d_model) and latent.shape == (8, cfg.latent_dim)
     assert eos.shape == (8,) and bool(torch.isfinite(x).all() and torch.isfinite(latent).all())
 

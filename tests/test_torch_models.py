@@ -92,8 +92,8 @@ def test_kv_cache_ring_mask_matches_jax():
                          cursor=jnp.asarray(cursor), t0=jnp.asarray(t0))
         tc = tfl.KVCache(k=torch.zeros(L, B, Tmax, 1, 2), v=torch.zeros(L, B, Tmax, 1, 2),
                          prefix_len=torch.from_numpy(prefix), start=torch.from_numpy(start),
-                         cursor=cursor, t0=t0)
-        assert tc.write_col == int(jc.write_col)
+                         cursor=torch.tensor(cursor, dtype=torch.int32), t0=t0)
+        assert int(tc.write_col) == int(jc.write_col)
         for through in (True, False):
             np.testing.assert_array_equal(tc.valid_mask(through).numpy(),
                                           np.asarray(jc.valid_mask(through)))
