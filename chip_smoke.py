@@ -6,8 +6,9 @@
 Phases; any failure raises, exits non-zero and prints no result. They run
 in this order, but for phase 3, which runs last, over every (B, T) at which
 the other phases launched a kernel, for phase 12 (a), which runs after
-phase 2 while the card's memory is free, and for phase 13, which runs after
-phase 11, on its context. Each phase's seconds are printed:
+phase 2 while the card's memory is free, for phase 13, which runs after
+phase 11, on its context, and for phase 14, which runs after phase 12 (b)
+and (c). Each phase's seconds are printed:
   1. device  -- CUDA must be available; prints nvidia-smi's name and power limit
   2. build   -- nvcc builds the hand-written kernels from ptts_torch/csrc;
                 ptxas registers, shared memory and spills; where the toolkit
@@ -133,7 +134,24 @@ phase 11, on its context. Each phase's seconds are printed:
                 stream step and serving step, the offline bench value at
                 B = 256, host syncs and done checks in one generate_full,
                 captures and their seconds, the graph pools' memory
-Launch counts are set to 0 before each of phases 4, 6, 7 and 12 (a) and (c)
+ 14. tools   -- the port's tools (ptts_torch/tools) on the card: (a)
+                sanitize's four phases at full width on phase 4's checkpoint
+                (guarded raw launches of B1 and B2 at ragged T, in f32 and
+                bf16: output bands bit-identical, outputs finite and within
+                phase 3's gates; the per-operation NaN trap over an eager
+                generate; the PTTS_SANITIZE guards silent; a planted NaN
+                weight named), and the NaN trap again on a bf16 engine; (b)
+                flowlm_parity against the JAX package's full-width dumps in
+                tests/data/jax_golden/ (the checkpoint's SHA-256 must match
+                its meta.json first): f32 latents within 1e-3 and cond and
+                flow within 1e-4 of max, the --mimi-wave WAV within 33 LSB
+                (1e-3 of full scale), each tap's reading, the latents' by
+                frame, the WAV's LSB and clipped share printed; (c) both
+                sweeps in this process -- bench_batcher_sweep at 64 slots, K
+                = 1 and 8, serial and pipelined, at most 5 s a point, and
+                bench_batch_sweep at B = 16 and 32, 10 frames, 1 repeat --
+                each row printed with the card's name and power limit
+Launch counts are set to 0 before each of phases 4, 6, 7, 12 (a) and (c) and 14
 and read after; phase 13 sums them over its runs, phase 8 over its serving
 runs alone (B2 must stay at 0 there), phase 9 over its sharded serving runs
 and the dry run alone, phase 10 over (a)'s plain run and over (b)-(c)'s
@@ -144,7 +162,8 @@ keeps the shapes launched since the last one (SEEN): phase 3 reads them.
 The int16 gates of phases 6 and 8 (c) let a clipping waveform fall back to
 its f32 view at 1e-3 of max (the random full-size PCM clips).
 Printed last: {"stream": ...}, {"serve": ...}, {"mesh": ...}, {"flags": ...},
-{"bf16": ...}, {"bench": ...}, {"graphs": ...} and {"phase_s": ...} lines, then
+{"bf16": ...}, {"bench": ...}, {"graphs": ...}, {"tools": ...} and
+{"phase_s": ...} lines, then
 {"kernels": [...]} (each kernel's cases, one for each launched shape in
 each dtype), then
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -184,7 +203,8 @@ from ptts_torch.runtime.batching import ContinuousBatcher, Request  # noqa: E402
 from ptts_torch.runtime.engine import TTSEngine  # noqa: E402
 from ptts_torch.runtime.streaming import StreamingSession  # noqa: E402
 from ptts_torch.utils import packing, profiling  # noqa: E402
-from ptts_torch.tools import bench_streaming  # noqa: E402
+from ptts_torch.tools import (bench_batch_sweep, bench_batcher_sweep, bench_streaming,  # noqa: E402
+                              flowlm_parity, sanitize)
 from ptts_torch.utils.timing import GLOBAL_STATS  # noqa: E402
 
 SOURCE = "ptts_torch/csrc/fused_attention.cu"
@@ -1913,6 +1933,108 @@ def phase_bench(model_dir: str, smi: str) -> dict:
                 launches=d["kernels"]["launches"], streaming_launches=streaming_launches)
 
 
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "jax_golden")
+# the batcher sweep at 64 slots, K = 1 and 8, serial and pipelined, 100
+# requests (the sweep's own floor, as in the JAX tool's, makes each point
+# finish max(100 * 64 / 256, 200) = 200), at most 5 s a point
+BATCHER_SWEEP = ["--slots", "64", "--k", "1,8", "--modes", "serial,pipe", "--reqs", "100",
+                 "--max-seconds", "5"]
+BATCH_SWEEP = (["16", "32"], {"PTTS_BENCH_FRAMES": "10", "PTTS_BENCH_REPEATS": "1"})
+
+
+def json_lines(fn, *args) -> list:
+    """fn(*args) with its standard output captured: rc 0, and each line a
+    JSON object, printed again indented."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = fn(*args)
+    check(rc == 0, f"{fn.__module__}: rc {rc}")
+    rows = [json.loads(line) for line in out.getvalue().splitlines() if line.strip()]
+    for row in rows:
+        print(f"  {json.dumps(row)}")
+    return rows
+
+
+def trap_line(what: str, trap: dict, smi: str) -> str:
+    return (f"tools (a): NaN trap {what} ({trap['dtype']}, graphs off): {trap['ops']} aten ops "
+            f"and kernel wrapper calls {trap['kernel_calls']} checked in "
+            f"{trap['seconds']:.3f} s (again: {trap['seconds_warm']:.3f} s), the same generate "
+            f"warm and untrapped {trap['plain_seconds']:.3f} s; {smi.splitlines()[0]}")
+
+
+def phase_tools(model_dir: str, smi: str) -> dict:
+    """Phase 14: the port's tools on the card. (a) ptts_torch.tools.sanitize
+    phases 1-4 at full width on phase 4's checkpoint, and phase 2 again on
+    a bf16 engine; (b) flowlm_parity against the JAX package's full-width
+    dumps (tests/data/jax_golden/, made from ``synth.write_model_dir(dir,
+    seed=0)``, whose SHA-256 must match meta.json first): f32 taps within
+    the card-against-CPU gates (latents 1e-3, cond and flow 1e-4 of max),
+    the WAV within 33 LSB; (c) both sweeps at a reduced grid, in this
+    process. Launch counts are set to 0 first and read after: both kernels
+    must have launched (phase 1's raw launches do not count)."""
+    reset_launches()
+    card = smi.splitlines()[0]
+    # (a)
+    failures, res = sanitize.run_phases(model_dir, "cuda")
+    check(not failures, f"sanitize: {failures} failed")
+    guarded, trap = res[1], res[2]
+    print(f"tools (a): guarded launches {guarded['cases']} cases (B1 and B2, f32 and bf16), "
+          f"largest error against the plain version f32 {guarded['max_rel']['f32']:.3e}, bf16 "
+          f"{guarded['max_rel']['bf16']:.3e} of max, {guarded['seconds']:.3f} s; {card}")
+    print(trap_line("generate", trap, smi))
+    ctx = api.load_dir(model_dir, device="cuda")
+    trap_bf16 = sanitize.phase_nan_trap(ctx, torch.bfloat16, verbose=False)
+    ctx.close()
+    print(trap_line("generate", trap_bf16, smi))
+
+    # (b)
+    bad = flowlm_parity.meta_mismatch(GOLDEN, model_dir)
+    check(bad is None, f"flowlm_parity: {bad}")
+    with open(os.path.join(GOLDEN, "meta.json"), encoding="utf-8") as f:
+        meta = json.load(f)
+    env = {k: v for k, v in os.environ.items() if k != "PTTS_DTYPE"}
+    with tempfile.TemporaryDirectory(prefix="ptts_parity_") as tmp, \
+            mock.patch.dict(os.environ, env, clear=True):
+        ours = flowlm_parity.run_ours(model_dir, meta["prompt"], meta["frames"], meta["seed"],
+                                      tmp, device="cuda", wave=True)
+    want = flowlm_parity.load_dumps(GOLDEN)
+    parity = flowlm_parity.compare(ours, want, 0.0, flowlm_parity.CARD_GATES)
+    scale = float(np.abs(want["latents"]).max())
+    by_frame = [float(np.abs(g - w).max()) / scale for g, w in
+                zip(ours["latents"].reshape(meta["frames"], -1),
+                    want["latents"].reshape(meta["frames"], -1))]
+    print("tools (b): card against the JAX package (f32, full width): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in parity["rel"].items())
+          + f" of max; latents by frame {[f'{v:.2e}' for v in by_frame]}; WAV "
+          f"{parity['wave_lsb']} LSB, clipped {parity['clipped']:.4f}; {card}")
+    check(parity["ok"], f"flowlm_parity against {GOLDEN}: {parity}")
+
+    # (c)
+    with mock.patch.dict(os.environ, {"PTTS_BENCH_WARMUP_STEPS": "2",
+                                      "PTTS_BENCH_MODEL_DIR": model_dir}):
+        t0 = time.perf_counter()
+        batcher = json_lines(bench_batcher_sweep.main, BATCHER_SWEEP)
+        batcher_s = time.perf_counter() - t0
+        with mock.patch.dict(os.environ, BATCH_SWEEP[1]):
+            t0 = time.perf_counter()
+            offline = json_lines(bench_batch_sweep.main, BATCH_SWEEP[0])
+            offline_s = time.perf_counter() - t0
+    check(len(batcher) == 4 and all(r["streams"] > 0 and r["finished"] > 0 for r in batcher),
+          f"bench_batcher_sweep: {batcher}")
+    check(len(offline) == 3 and offline[-1]["best"] in offline[-1]["sweep"]
+          and all(r["streams_on"] > 0 for r in offline[:2]), f"bench_batch_sweep: {offline}")
+    check(all(r["device"]["name"] == card.rsplit(",", 1)[0].strip()
+              for r in batcher + offline[:2]), "sweeps: device name differs from phase 1's")
+    launches, shapes = read_launches(), read_shapes()
+    for name, count in launches.items():
+        check(count > 0, f"{name} was not launched by the tools")
+    print(f"tools (c): batcher sweep {batcher_s:.1f} s, offline sweep {offline_s:.1f} s; "
+          f"launches {launches}; by shape {shapes}")
+    return dict(guarded=guarded, trap=trap, trap_bf16=trap_bf16, parity=parity,
+                latents_by_frame=by_frame, batcher_sweep=batcher, batcher_sweep_s=batcher_s,
+                batch_sweep=offline, batch_sweep_s=offline_s, launches=launches)
+
+
 PHASE_S = {}
 
 
@@ -1958,6 +2080,7 @@ def main() -> int:
         ctx.close()
         cpu_ctx.close()
         bench_run = timed("12bc bench", phase_bench, model_dir, smi)
+        tools = timed("14 tools", phase_tools, model_dir, smi)
     reset_launches()   # the last path's shapes into SEEN
     seen = {name: SEEN[name] + bench_run["shapes"][name] for name in KERNELS}
     results = timed("3 kernels", phase_kernels, seen)
@@ -1969,7 +2092,8 @@ def main() -> int:
                       "bench_offline": offline["launches"][name],
                       "bench": bench_run["launches"][name],
                       "bench_streaming": bench_run["streaming_launches"][name],
-                      "graphs": graphs_run["launches"][name]}
+                      "graphs": graphs_run["launches"][name],
+                      "tools": tools["launches"][name]}
                for name in KERNELS}
     print(json.dumps({"stream": {k: stream[k] for k in ("ttfc_first_ms", "ttfc_warm_ms", "lsb",
                                                         "rates", "profile", "drift")}}))
@@ -1983,6 +2107,7 @@ def main() -> int:
                                 **{k: bench_run[k] for k in ("bench", "bench_s", "streaming",
                                                              "streaming_s")}}}))
     print(json.dumps({"graphs": graphs_run}))
+    print(json.dumps({"tools": tools}))
     print(json.dumps({"phase_s": PHASE_S, "total_s": time.perf_counter() - t_start}))
 
     kernels = []

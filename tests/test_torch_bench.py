@@ -360,7 +360,9 @@ def test_bench_model_dir_is_keyed_by_the_configs(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("module", ["ptts_torch.bench", "ptts_torch.tools.bench_http",
                                     "ptts_torch.tools.bench_streaming",
-                                    "ptts_torch.tools.profile_stages"])
+                                    "ptts_torch.tools.profile_stages",
+                                    "ptts_torch.tools.bench_batcher_sweep",
+                                    "ptts_torch.tools.bench_batch_sweep"])
 def test_entry_points_refuse_to_run_without_a_card(module):
     proc = subprocess.run([sys.executable, "-m", module], cwd=REPO, capture_output=True,
                           text=True, timeout=300, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})

@@ -22,6 +22,7 @@ from ptts_torch import api, synth  # noqa: E402
 from ptts_torch.config import FlowLMConfig, MimiConfig  # noqa: E402
 from ptts_torch.ops.cuda import fused_attention as fa  # noqa: E402
 from ptts_torch.runtime.streaming import StreamingSession, fused_stream_step  # noqa: E402
+from ptts_torch.tools import sanitize as tsan  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 GATES = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
@@ -141,6 +142,32 @@ def test_window_kernel_grid(dev, dtype, T, context):
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     assert rel(got, want) <= GATES[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", tsan.B1_B)
+@pytest.mark.parametrize("T", tsan.B1_T)
+def test_causal_kernel_guarded_launch(dev, dtype, T, B):
+    """ptts_torch.tools.sanitize phase 1: B1's C entry point on views inside
+    slabs whose bands hold NaN (inputs) and a sentinel (outputs): the output
+    bands come back bit-identical, the outputs finite and within the gate
+    of the plain version."""
+    launch = tsan.kernel_launch("causal_attention_qkv", dev)
+    before = fa.causal_attention_qkv.launches
+    res = tsan.guarded_case("causal_attention_qkv", dtype, B, T, tsan.B1_HEADS, launch, dev,
+                            seed=B * 1000 + T)
+    assert res["rel"] <= GATES[dtype]
+    assert fa.causal_attention_qkv.launches == before   # a raw launch is not counted
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("context", tsan.B2_CONTEXTS)
+@pytest.mark.parametrize("T", tsan.B2_T)
+def test_window_kernel_guarded_launch(dev, dtype, T, context):
+    launch = tsan.kernel_launch("window_attention_qkv", dev)
+    res = tsan.guarded_case("window_attention_qkv", dtype, tsan.B2_B, T, tsan.B2_HEADS, launch,
+                            dev, context=context, seed=T + context)
+    assert res["rel"] <= GATES[dtype]
 
 
 def test_shared_memory_limit_raised_once(dev):
