@@ -1,0 +1,190 @@
+"""The readers of the program's own tracing (metrics/ that read the
+tracer's ring or the marker kernels) against hand counts on synthetic
+observations, with nothing to read (an empty ring, no markers, a program
+without a ring: each gives None), and on a traced CPU run of each cell."""
+
+import importlib.util
+import json
+import os
+import time
+
+import numpy as np
+import pytest
+import torch
+
+import tiny
+from benchmark import check, spans
+from benchmark.run import run_cell
+from benchmark.trace import SubWindow
+
+BENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NEW = ["batcher.admit_to_first_chunk_p95_ms", "batcher.admit_fill_pct",
+       "step.flowlm_device_ms_per_frame", "step.mimi_device_ms_per_frame",
+       "model.mimi_wall_pct", "step.replay_idle_pct"]
+
+
+def metric(name):
+    spec = importlib.util.spec_from_file_location("m_" + name.replace(".", "_"),
+                                                  os.path.join(BENCH, "metrics", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read
+
+
+def sub_at(t0, window_s=1.0, events=()):
+    sub = SubWindow()
+    sub.t0, sub.t1, sub.events = t0, t0 + window_s, list(events)
+    return sub
+
+
+def use_ring(monkeypatch, recs):
+    monkeypatch.setattr(spans, "tracer_records", lambda: list(recs))
+
+
+def kernel(name, ts, dur):
+    return {"ph": "X", "cat": "kernel", "name": name, "ts": ts, "dur": dur}
+
+
+def host(name, ts, dur):
+    return {"ph": "X", "cat": "user_annotation", "name": name, "ts": ts, "dur": dur}
+
+
+# a serving window: the profiler starts at 100.0; the last record before it
+# ends at 99.5, and the host window is the 10 s before that
+SERVE = [
+    ("event", "ptts.enqueue", 80.0, 80.0, 0, 0, {"rid": 1}),
+    ("span", "ptts.admit_group", 89.0, 89.01, 5, 4, {"rids": (1,), "lengths": (50,),
+                                                      "shape": (32, 64)}),
+    ("event", "ptts.first_chunk", 89.03, 89.03, 0, 0, {"rid": 1}),   # before the window
+    ("span", "ptts.admit_group", 90.0, 90.01, 7, 6, {"rids": (2, 3), "lengths": (45, 57),
+                                                      "shape": (32, 64)}),
+    ("count", "admit.positions", 90.0, 90.0, 0, 7, 102),
+    ("count", "admit.launched_positions", 90.0, 90.0, 0, 7, 2048),
+    ("event", "ptts.first_chunk", 90.02, 90.02, 0, 0, {"rid": 2}),
+    ("event", "ptts.first_chunk", 90.05, 90.05, 0, 0, {"rid": 3}),
+    ("span", "ptts.admit_group", 95.0, 95.01, 9, 8, {"rids": (2,), "lengths": (40,),
+                                                      "shape": (32, 64)}),   # rid 2 again
+    ("count", "admit.positions", 95.0, 95.0, 0, 9, 40),
+    ("count", "admit.launched_positions", 95.0, 95.0, 0, 9, 2048),
+    ("event", "ptts.first_chunk", 95.04, 95.04, 0, 0, {"rid": 2}),
+    ("span", "ptts.collect", 99.4, 99.5, 10, 0, None),
+    ("count", "admit.positions", 100.5, 100.5, 0, 0, 999),   # in the profiled stretch
+    ("event", "ptts.first_chunk", 100.6, 100.6, 0, 0, {"rid": 3}),
+]
+
+
+def test_admit_to_first_chunk_is_the_p95_of_each_requests_own_stamps(monkeypatch):
+    use_ring(monkeypatch, SERVE)
+    obs = {"sub": sub_at(100.0), "flops_window_s": 10.0}
+    assert spans.host_window(obs, SERVE) == pytest.approx((89.5, 99.5))
+    waits = [0.02, 0.05, 0.04]             # rid 2, rid 3, rid 2 from its newest admission
+    assert metric(NEW[0])(obs) == pytest.approx(float(np.percentile(waits, 95)) * 1e3)
+
+
+def test_admit_fill_is_positions_over_launched(monkeypatch):
+    use_ring(monkeypatch, SERVE)
+    obs = {"sub": sub_at(100.0), "flops_window_s": 10.0}
+    assert metric(NEW[1])(obs) == pytest.approx((102 + 40) / 4096 * 100)
+
+
+OFFLINE = [
+    ("span", "ptts.prompts", 1.0, 1.1, 2, 1, None),
+    ("span", "ptts.frame_loop", 1.1, 3.0, 4, 3, None),
+    ("span", "ptts.mimi_decode", 3.0, 3.5, 5, 3, None),
+    ("span", "ptts.group", 1.1, 3.5, 3, 1, {"B": 16, "frames": 375}),
+    ("span", "ptts.batch_generate", 1.0, 3.6, 1, 0, {"texts": 64}),        # warm-up
+    ("span", "ptts.mimi_decode", 5.0, 5.8, 15, 13, None),
+    ("span", "ptts.group", 4.0, 5.8, 13, 11, {"B": 16, "frames": 375}),
+    ("span", "ptts.mimi_decode", 6.0, 6.2, 16, 14, None),
+    ("span", "ptts.group", 5.8, 6.2, 14, 11, {"B": 16, "frames": 200}),
+    ("span", "ptts.batch_generate", 4.0, 6.5, 11, 0, {"texts": 64}),
+    ("span", "ptts.mimi_decode", 7.0, 7.5, 25, 23, None),
+    ("span", "ptts.group", 6.5, 7.5, 23, 21, {"B": 16, "frames": 375}),
+    ("span", "ptts.batch_generate", 6.5, 8.5, 21, 0, {"texts": 64}),
+    ("span", "ptts.prompts", 8.5, 8.52, 32, 31, None),                   # the traced pass
+]
+
+
+def test_mimi_wall_reads_the_window_passes_only(monkeypatch):
+    use_ring(monkeypatch, OFFLINE)
+    # the window: passes 2 and 3, 4.5 s; the traced pass's prompts end last
+    obs = {"sub": sub_at(9.0), "flops_window_s": 4.5}
+    want = ((5.8 - 5.0) + (6.2 - 6.0) + (7.5 - 7.0)) / ((6.5 - 4.0) + (8.5 - 6.5)) * 100
+    assert metric(NEW[4])(obs) == pytest.approx(want)
+
+
+def step_trace(t, k_flow, k_mimi):
+    """One replayed step at t: markers around FlowLM and Mimi kernels."""
+    ev = [kernel("ptts_mark_flowlm", t, 2)]
+    ev += [kernel("gemv", t + 5 + 10 * i, 8) for i in range(k_flow)]
+    m = t + 5 + 10 * k_flow
+    ev.append(kernel("ptts_mark_mimi", m, 2))
+    ev += [kernel("conv", m + 5 + 10 * i, 8) for i in range(k_mimi)]
+    e = m + 5 + 10 * k_mimi
+    ev.append(kernel("ptts_mark_end", e, 2))
+    ev.append(kernel("copy", e + 5, 3))
+    return ev
+
+
+def test_flowlm_and_mimi_device_time_per_frame():
+    events = step_trace(1000, 3, 2) + step_trace(2000, 3, 2) + [kernel("admit", 500, 50)]
+    obs = {"sub": sub_at(0.0, events=events), "sub_info": {"frames": 2}}
+    # FlowLM: marker 2 + 3 x 8 per step; Mimi: marker 2 + 2 x 8 (us), per frame in ms
+    assert metric(NEW[2])(obs) == pytest.approx(2 * (2 + 24) / 2 * 1e-3)
+    assert metric(NEW[3])(obs) == pytest.approx(2 * (2 + 16) / 2 * 1e-3)
+
+
+def test_replay_idle_counts_the_gaps_inside_replays():
+    events = [kernel("a", 0, 100), kernel("b", 300, 100), kernel("c", 450, 50),
+              kernel("d", 1000, 100), host("ptts.graph.replay", 120, 250),
+              host("ptts.graph.replay", 600, 100), host("bench.frame_loop", 0, 2000)]
+    # gaps: 100-300 (mid 200, in the first replay), 400-450 (mid 425: none),
+    # 500-1000 (mid 750: past the second replay's end 700)
+    obs = {"sub": sub_at(0.0, window_s=2000e-6, events=events)}
+    assert metric(NEW[5])(obs) == pytest.approx(200 / 2000 * 100)
+    events[-2] = host("ptts.graph.replay", 600, 200)                # now 750 is inside
+    obs = {"sub": sub_at(0.0, window_s=2000e-6, events=events)}
+    assert metric(NEW[5])(obs) == pytest.approx(700 / 2000 * 100)
+
+
+@pytest.mark.parametrize("recs", [[], None], ids=["empty_ring", "no_ring"])
+@pytest.mark.parametrize("name", NEW)
+def test_nothing_to_read_gives_none(monkeypatch, name, recs):
+    """An empty ring, or a program without one (the parent of this
+    tracing), and a trace without markers or replay ranges: None."""
+    monkeypatch.setattr(spans, "tracer_records", lambda: None if recs is None else list(recs))
+    read = metric(name)
+    plain = [kernel("gemv", 10, 5), host("bench.step", 0, 100)]
+    obs = {"sub": sub_at(100.0, events=plain), "flops_window_s": 10.0,
+           "sub_info": {"frames": 4}}
+    assert read(obs) is None
+    assert read({"sub": None, "flops_window_s": 10.0, "sub_info": {}}) is None
+
+
+def test_a_program_without_a_ring_gives_none(monkeypatch):
+    from ptts_torch.utils import timing
+    monkeypatch.delattr(timing, "records")
+    assert spans.tracer_records() is None
+
+
+CELLS = [("bf16-serve-short", "serve-short-open", ["batcher.admit_to_first_chunk_p95_ms",
+                                                   "batcher.admit_fill_pct"]),
+         ("f32-offline-long", "offline-long-batch", ["model.mimi_wall_pct"])]
+
+
+@pytest.mark.parametrize("workload,mixname,names", CELLS)
+def test_traced_cpu_run_reads_the_host_spans(workload, mixname, names):
+    torch.set_num_threads(2)
+    out = run_cell(workload, 3000000041, 1.0, True, device="cpu", cfg=tiny.cfg("f32"),
+                   mix=tiny.mix(mixname), limits=check.limits(workload),
+                   t_process=time.perf_counter())
+    assert out["correct"]
+    bench = json.load(open(os.path.join(os.path.dirname(BENCH), "BENCHMARK.json")))
+    listed = {m["name"] for m in bench["per_layer"] if workload in m["workloads"]}
+    assert set(names) <= listed and set(names) <= set(out["metrics"]), out["metrics"]
+    v = {n: out["metrics"][n]["value"] for n in names}
+    assert all(x > 0 for x in v.values()), v
+    if "batcher.admit_fill_pct" in v:
+        assert v["batcher.admit_fill_pct"] <= 100.0
+    if "model.mimi_wall_pct" in v:
+        assert v["model.mimi_wall_pct"] < 100.0

@@ -34,6 +34,7 @@ from ..ops.attention import decode_attention_blocked, decode_attention_masked
 from ..ops.cuda.fused_attention import causal_attention_qkv, causal_attention_qkv_plain
 from ..ops.norms import kyutai_rmsnorm, layernorm
 from ..ops.rope import rope_rotate_halves
+from ..utils import timing
 
 DEFAULT_FLAGS = KernelFlags()
 
@@ -647,14 +648,16 @@ def run_chunks(done: torch.Tensor, frames: int, chunk: int, stop_when_done: bool
                advance) -> None:
     """``frames`` frames as ``advance(n)`` calls of ``chunk`` frames (the
     last one shorter). With ``stop_when_done`` the host reads done.all()
-    once before each chunk (HOST_CHECKS) and stops once every stream is
-    done: at most ceil(frames / chunk) reads."""
+    once before each chunk (HOST_CHECKS; the span ``ptts.loop.check``) and
+    stops once every stream is done: at most ceil(frames / chunk) reads."""
     global HOST_CHECKS
     t = 0
     while t < frames:
         if stop_when_done:
             HOST_CHECKS += 1
-            if bool(done.all()):
+            with timing.span("ptts.loop.check"):
+                finished = bool(done.all())
+            if finished:
                 break
         n = min(chunk, frames - t)
         advance(n)

@@ -54,6 +54,16 @@ Where the port differs from the JAX module, and why:
     frames_per_step - 1 under split_admit). The step updates the shard's
     state in place, the cursors included, so admission (eager, with B1)
     writes where the graph reads; the readback stays outside the graph.
+
+Tracing (utils/timing): ``enqueue`` stamps each request (event
+``ptts.enqueue``, rid); a step's phases are the spans ``ptts.admit``,
+``ptts.dispatch`` and ``ptts.collect`` (in it ``ptts.collect.wait``, the
+readback wait), read from the same clock reads that ``phase_s`` sums; each
+admit group is a ``ptts.admit_group`` span (its rids, each prompt's length,
+the launched [admit_chunk, prefix_budget]) with the counters
+``admit.positions`` and ``admit.launched_positions``; a stream's first
+chunk on the host is the event ``ptts.first_chunk`` (rid), at the stamp of
+``first_chunk_t``.
 """
 
 from __future__ import annotations
@@ -74,6 +84,7 @@ from ..models import flowlm, mimi_stream
 from ..parallel import mesh as pmesh
 from ..rng import frame_noise
 from ..text import estimate_frames, prepare_text
+from ..utils.timing import count, event, span
 from .graphs import GraphCache
 from .streaming import fused_stream_step, fused_stream_steps
 
@@ -552,6 +563,7 @@ class ContinuousBatcher:
             raise ValueError(f"cond_budget {self.cond_budget} must be < prefix_budget "
                              f"{prefix_budget}")
         self._voice_idx: Dict[str, int] = {}
+        self._voice_frames = np.zeros(voice_cap, np.int64)   # host mirror of cond_len
         self._voice_lock = threading.Lock()
         self.shards = self._make_shards(mesh)
         B1 = self.B1 = sum(sh.rows for sh in self.shards)
@@ -750,6 +762,7 @@ class ContinuousBatcher:
                 if n:
                     sh.cond_bank[idx].copy_(torch.from_numpy(row))
                 sh.cond_len[idx] = n
+            self._voice_frames[idx] = n
             self._voice_idx[name] = idx
             return idx
 
@@ -862,6 +875,7 @@ class ContinuousBatcher:
             raise QueueFull(f"admission queue full ({self.max_queue} requests); retry later")
         self.queues[self._route_host() if host is None else host].append(req)
         self.chunks[req.rid] = []
+        event("ptts.enqueue", rid=req.rid)
         return req.rid
 
     def cancel(self, rid: int) -> bool:
@@ -962,22 +976,32 @@ class ContinuousBatcher:
                 group: List[Tuple[int, Request]] = []
                 while rows and q and len(group) < self.admit_chunk:
                     group.append((rows.pop(0), q.popleft()))
-                tg = time.perf_counter()
-                self._admit_group(group, sh)
-                work += time.perf_counter() - tg
+                work += self._admit_group(group, sh)
                 admitted += len(group)
         self._admit_work += work
         return admitted
 
+    def _prompt_len(self, req: Request) -> int:
+        """The prompt's positions as admission builds it: voice frames + ids
+        + 1 (admit_slots_ids), or the host prefix's rows."""
+        if req.ids is None:
+            return len(req.prefix)
+        return int(self._voice_frames[req.voice_idx]) + len(req.ids) + 1
+
     def _admit_group(self, group: List[Tuple[Optional[int], Request]], shard: Shard,
-                     spec: bool = False) -> None:
-        """Admit one group into ``shard``, on its device. If the admission
-        raises, the group's requests that it left in neither a slot nor a
-        receipt go back to the front of their queue before the error
-        propagates, so the caller (the server's _on_step_error) can fail
-        them instead of losing them."""
+                     spec: bool = False) -> float:
+        """Admit one group into ``shard``, on its device; returns the
+        seconds of its span (ptts.admit_group), which phase_s sums. If the
+        admission raises, the group's requests that it left in neither a
+        slot nor a receipt go back to the front of their queue before the
+        error propagates, so the caller (the server's _on_step_error) can
+        fail them instead of losing them."""
+        lengths = tuple(self._prompt_len(req) for _, req in group)
         try:
-            with pmesh.on_device(shard.device):
+            with span("ptts.admit_group", rids=tuple(req.rid for _, req in group),
+                      lengths=lengths, shape=(self.admit_chunk, self.prefix_budget)) as g, \
+                    pmesh.on_device(shard.device):
+                count("admit.positions", sum(lengths))
                 self._admit_variants(group, shard, spec)
         except BaseException:
             held = {id(r) for r in self.slot_req if r is not None}
@@ -986,6 +1010,7 @@ class ContinuousBatcher:
                 if id(req) not in held:
                     self.queues[shard.host].appendleft(req)
             raise
+        return g.t1 - g.t0
 
     def _admit_spec(self) -> int:
         """Speculative admission: launch admissions whose target rows are
@@ -1010,9 +1035,7 @@ class ContinuousBatcher:
             take = min(self.admit_chunk, budget, len(q))
             sh = self.shards[max(free, key=lambda i: (free[i], -i))]
             group = [(None, q.popleft()) for _ in range(take)]
-            tg = time.perf_counter()
-            self._admit_group(group, sh, spec=True)
-            work += time.perf_counter() - tg
+            work += self._admit_group(group, sh, spec=True)
             self._spec_inflight += take
             free[sh.index] -= take
             admitted += take
@@ -1110,6 +1133,7 @@ class ContinuousBatcher:
 
     def _admit_group_prefix(self, group, shard: Shard, dev_noise: bool, spec: bool) -> None:
         n = self.admit_chunk
+        count("admit.launched_positions", n * self.prefix_budget)
         arrays, seeds = self._admit_bookkeep(group, shard, dev_noise)
         prefix = np.zeros((n, self.prefix_budget, self.cfg.d_model), np.float32)
         lengths = np.ones(n, np.int32)
@@ -1128,6 +1152,7 @@ class ContinuousBatcher:
 
     def _admit_group_ids(self, group, shard: Shard, dev_noise: bool, spec: bool) -> None:
         n = self.admit_chunk
+        count("admit.launched_positions", n * self.prefix_budget)
         arrays, seeds = self._admit_bookkeep(group, shard, dev_noise)
         ids = np.zeros((n, self.prefix_budget), np.int32)
         n_tokens = np.zeros(n, np.int32)
@@ -1265,10 +1290,9 @@ class ContinuousBatcher:
         # live in this step's flags -- install them first
         while self._receipts and self._receipts[0][2] <= seq:
             self._resolve_receipt(self._receipts.pop(0))
-        t = time.perf_counter
-        t0 = t()
-        host = self._read_step(rbs)
-        t_pcm = t()
+        with span("ptts.collect.wait") as wait:
+            host = self._read_step(rbs)
+        t0, t_pcm = wait.t0, wait.t1
         if not self.collect_pcm:
             # device-bound: one [k+1, B] flag readback; PCM stays on the device
             self.phase_s["c_wait"] = self.phase_s.get("c_wait", 0.0) + (t_pcm - t0)
@@ -1311,6 +1335,7 @@ class ContinuousBatcher:
                     parts.append(pcm_np[j, slot])
             if not had and parts:
                 self.first_chunk_t[req.rid] = t_pcm
+                event("ptts.first_chunk", t_pcm, rid=req.rid)
             if done_np[slot]:
                 parts = self.chunks.pop(req.rid, parts)
                 self.finished[req.rid] = Result(
@@ -1341,6 +1366,7 @@ class ContinuousBatcher:
                 continue
             parts.append(_EMPTY_I16)
             self.first_chunk_t[req.rid] = t_now
+            event("ptts.first_chunk", t_now, rid=req.rid)
         for slot in np.nonzero(act & done_np)[0]:
             req = self.slot_req[slot]
             if req is None:  # concurrently cancelled
@@ -1357,41 +1383,45 @@ class ContinuousBatcher:
 
     @torch.inference_mode()
     def step(self) -> int:
-        """Admit + collect one pool step. Returns #active streams."""
-        t = time.perf_counter
+        """Admit + collect one pool step. Returns #active streams. Its
+        phases are the spans ptts.admit, ptts.dispatch and ptts.collect;
+        phase_s sums the same clock reads."""
         self.n_steps += 1
         self._admit_work = 0.0
         if self._pending and not self._receipts and all(r is None for r in self.slot_req):
             pend, self._pending = self._pending, []
             for p in pend:
                 self._collect(p)  # flush stale speculative frames
-        t0 = t()
-        fresh = self._admit()
-        if self._receipts and not self._pending and not any(r is not None for r in self.slot_req):
-            # nothing in flight to carry the receipts forward: resolve them
-            # now (waiting on the tiny rows copy) so their requests go live
-            # or re-queue, then admit again
-            while self._receipts:
-                self._resolve_receipt(self._receipts.pop(0))
-            fresh += self._admit()
-        t1 = t()
-        have_active = any(r is not None for r in self.slot_req)
-        if not self._pending:
-            if not have_active:
-                self.phase_s["admit"] += self._admit_work
-                self.phase_s["admit_wait"] += (t1 - t0) - self._admit_work
-                return 0
-            self._dispatch_step(fresh)
-            fresh = 0  # this dispatch already carries the fresh streams
-        pend, self._pending = self._pending, []
-        if self.pipeline and (self._spec_inflight > 0 or not self._done_np[self.slot_rows].all()):
-            # speculative next step: overlaps the readback in _collect()
-            self._dispatch_step(fresh)
-        t2 = t()
+        with span("ptts.admit") as admit:
+            fresh = self._admit()
+            if (self._receipts and not self._pending
+                    and not any(r is not None for r in self.slot_req)):
+                # nothing in flight to carry the receipts forward: resolve them
+                # now (waiting on the tiny rows copy) so their requests go live
+                # or re-queue, then admit again
+                while self._receipts:
+                    self._resolve_receipt(self._receipts.pop(0))
+                fresh += self._admit()
+        t0, t1 = admit.t0, admit.t1
+        if not self._pending and not any(r is not None for r in self.slot_req):
+            self.phase_s["admit"] += self._admit_work
+            self.phase_s["admit_wait"] += (t1 - t0) - self._admit_work
+            return 0
+        with span("ptts.dispatch") as dispatch:
+            if not self._pending:
+                self._dispatch_step(fresh)
+                fresh = 0  # this dispatch already carries the fresh streams
+            pend, self._pending = self._pending, []
+            if self.pipeline and (self._spec_inflight > 0
+                                  or not self._done_np[self.slot_rows].all()):
+                # speculative next step: overlaps the readback in _collect()
+                self._dispatch_step(fresh)
+        t2 = dispatch.t1
         out = 0
-        for p in pend:  # FIFO: _done_np mirrors stay in dispatch order
-            out = self._collect(p)
-        t3 = t()
+        with span("ptts.collect") as collect:
+            for p in pend:  # FIFO: _done_np mirrors stay in dispatch order
+                out = self._collect(p)
+        t3 = collect.t1
         self.phase_s["admit"] += self._admit_work
         self.phase_s["admit_wait"] += (t1 - t0) - self._admit_work
         self.phase_s["dispatch"] += t2 - t1

@@ -41,7 +41,7 @@ from ..rng import frame_noise
 from ..text import estimate_frames, prepare_text
 from ..utils import sanitize
 from ..utils.compile_cache import enable_persistent_cache
-from ..utils.timing import GLOBAL_STATS, span
+from ..utils.timing import GLOBAL_STATS, counters, span
 from .graphs import GraphCache
 
 
@@ -320,8 +320,10 @@ class TTSEngine:
 
     def stats(self) -> dict:
         """Per-span timing summary (count, total, min, max), as the JAX
-        engine reports it; the server's GET /stats reads it."""
-        return GLOBAL_STATS.summary()
+        engine reports it, over every span of the process (the engine's,
+        the batcher's, the graphs'), and the tracer's counters under
+        "counters"; the server's GET /stats reads it."""
+        return {**GLOBAL_STATS.summary(), "counters": counters()}
 
     @torch.inference_mode()
     def batch_generate(self, texts: Sequence[str],
@@ -331,19 +333,30 @@ class TTSEngine:
         """B independent utterances, run in lockstep in one batch (or, with
         ``length_buckets > 1``, in groups sorted by frame budget, each group
         stopping at its own longest stream). Stream i's noise is keyed by its
-        index (seed + i), so grouping never changes a stream's output."""
+        index (seed + i), so grouping never changes a stream's output.
+
+        Spans: ``ptts.batch_generate`` around the call; in it ``ptts.prompts``
+        (tokenize, prompt assembly) and a ``ptts.group`` per length group
+        (B, frames), which holds ``ptts.frame_loop`` (the call to
+        generate_latents_batch and the readback of its frame counts) and
+        ``ptts.mimi_decode`` (the decode and its readback)."""
+        with span("ptts.batch_generate", texts=len(texts)):
+            return self._batch_generate(texts, voices, params, length_buckets)
+
+    def _batch_generate(self, texts, voices, params, length_buckets) -> List[Audio]:
         p = (params or api.Params()).normalized()
         if voices is None:
             voices = [None] * len(texts)
 
         prefixes, frames, eos_afters = [], [], []
-        for text, voice in zip(texts, voices):
-            prepared, wc, eos_after_guess = prepare_text(text)
-            ids = self.ctx.tokenize(prepared)
-            cond, _ = self._voice_cond(voice)
-            prefixes.append(self._build_prefix(ids, cond))
-            frames.append(p.num_frames if p.num_frames > 0 else estimate_frames(wc))
-            eos_afters.append(p.eos_after if p.eos_after > 0 else eos_after_guess)
+        with span("ptts.prompts"):
+            for text, voice in zip(texts, voices):
+                prepared, wc, eos_after_guess = prepare_text(text)
+                ids = self.ctx.tokenize(prepared)
+                cond, _ = self._voice_cond(voice)
+                prefixes.append(self._build_prefix(ids, cond))
+                frames.append(p.num_frames if p.num_frames > 0 else estimate_frames(wc))
+                eos_afters.append(p.eos_after if p.eos_after > 0 else eos_after_guess)
 
         B = len(texts)
         frames_np = np.asarray(frames, np.int32)
@@ -363,18 +376,23 @@ class TTSEngine:
             pad = gB - idx.size if G > 1 else 0
             gidx = np.concatenate([idx, np.repeat(idx[-1:], pad)]) if pad else idx
             gmax = int(frames_np[gidx].max())
-            noise = np.stack([
-                frame_noise(seed + int(i), gmax, self.flowlm_cfg.latent_dim,
-                            temp=p.temp, noise_clamp=p.noise_clamp)
-                for i in gidx
-            ])
-            res = self.generate_latents_batch(
-                [prefixes[i] for i in gidx], gmax, p, noise=noise,
-                eos_after=eos_np[gidx], frames_each=frames_np[gidx])
-            used = np.minimum(res.frames_used.cpu().numpy(), frames_np[gidx])
-            # vocoder at the group's own width, in 16-frame steps
-            fmax = min(res.latents.shape[1], _round_up(max(int(used.max()), 1), 16))
-            pcm = self.decode_audio_batch(flowlm.scale_latents(self.fw, res.latents[:, :fmax]))
+            with span("ptts.group", B=int(gidx.size), frames=gmax):
+                noise = np.stack([
+                    frame_noise(seed + int(i), gmax, self.flowlm_cfg.latent_dim,
+                                temp=p.temp, noise_clamp=p.noise_clamp)
+                    for i in gidx
+                ])
+                with span("ptts.frame_loop"):
+                    # through self: a wrapper set on the engine sees the call
+                    res = self.generate_latents_batch(
+                        [prefixes[i] for i in gidx], gmax, p, noise=noise,
+                        eos_after=eos_np[gidx], frames_each=frames_np[gidx])
+                    used = np.minimum(res.frames_used.cpu().numpy(), frames_np[gidx])
+                # vocoder at the group's own width, in 16-frame steps
+                fmax = min(res.latents.shape[1], _round_up(max(int(used.max()), 1), 16))
+                with span("ptts.mimi_decode"):
+                    pcm = self.decode_audio_batch(
+                        flowlm.scale_latents(self.fw, res.latents[:, :fmax]))
             for j, i in enumerate(idx):
                 n = int(used[j]) * self.mimi_cfg.frame_samples
                 out[i] = Audio(sample_rate=p.sample_rate, channels=1, samples=pcm[j, :n])

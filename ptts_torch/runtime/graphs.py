@@ -33,6 +33,13 @@ value that the body reads (a frame index, a threshold) is baked into the
 graph: it must be in the key or be read from a device buffer that the
 caller refills before the replay.
 
+Counts that a body makes while it is captured (the tracer's
+``utils/timing.count`` and the kernel wrappers' ``.launches`` and
+``.shapes``) are held back and added again at each replay, so they count
+the body's executions, as an eager body's do. Each capture and each replay
+is a span (``ptts.graph.capture``, ``ptts.graph.replay``, with the key's
+first element).
+
 Capture runs in ``capture_error_mode="thread_local"``: the server's handler
 threads may write the device (a voice bank row) while the serving thread
 captures. There is no eager fallback: an error in capture or replay
@@ -41,11 +48,15 @@ propagates, and a key whose capture failed is captured again next time.
 
 from __future__ import annotations
 
+import collections
 import threading
 import time
 from typing import Any, Callable, Dict, Hashable
 
 import torch
+
+from ..ops.cuda import fused_attention
+from ..utils import timing
 
 # captures, their host seconds (capture_begin .. capture_end) and replays,
 # over every GraphCache of the process; chip_smoke and the benches read them
@@ -72,13 +83,45 @@ def _device(device) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device() if dev.index is None else dev.index)
 
 
+# the kernel wrappers whose launch counters a replay advances
+_COUNTED = (fused_attention.causal_attention_qkv, fused_attention.window_attention_qkv)
+
+
 class _Entry:
-    __slots__ = ("calls", "graph", "outputs")
+    __slots__ = ("calls", "graph", "outputs", "counts", "launches")
 
     def __init__(self):
         self.calls = 0
         self.graph = None
         self.outputs = None
+        self.counts = None      # the tracer's counts made in the captured body
+        self.launches = ()      # (wrapper, launches, shapes) made in it
+
+
+def _launch_counts() -> list:
+    return [(fn, fn.launches, collections.Counter(fn.shapes)) for fn in _COUNTED]
+
+
+def _held_launches(before: list) -> tuple:
+    """The kernel launches counted since ``before`` (a capture's), taken
+    back off the wrappers' counters: (wrapper, launches, shapes) each."""
+    out = []
+    for fn, n, shapes in before:
+        if fn.launches != n:
+            out.append((fn, fn.launches - n, fn.shapes - shapes))
+            fn.launches = n
+            fn.shapes.clear()
+            fn.shapes.update(shapes)
+    return tuple(out)
+
+
+def _replay(entry: _Entry) -> None:
+    entry.graph.replay()
+    if entry.counts:
+        timing.add_counts(entry.counts)
+    for fn, n, shapes in entry.launches:
+        fn.launches += n
+        fn.shapes.update(shapes)
 
 
 class GraphCache:
@@ -112,6 +155,7 @@ class GraphCache:
         the next, replayed after that. Returns the body's outputs."""
         dev = _device(device)
         entry = self._graphs.setdefault(key, _Entry())
+        head = key[0] if isinstance(key, tuple) else key
         side = _side_stream(dev)
         with torch.cuda.device(dev):
             cur = torch.cuda.current_stream(dev)
@@ -129,8 +173,10 @@ class GraphCache:
                 graph = torch.cuda.CUDAGraph()
                 side.wait_stream(cur)
                 t0 = time.perf_counter()
+                launches = _launch_counts()
                 try:
-                    with torch.cuda.stream(side):
+                    with timing.span("ptts.graph.capture", key=head), \
+                            timing.capture_counts() as counts, torch.cuda.stream(side):
                         graph.capture_begin(pool[0], capture_error_mode="thread_local")
                         try:
                             outputs = body()
@@ -141,11 +187,14 @@ class GraphCache:
                     if pool[1] == 0:
                         del self._pools[dev]
                     raise
+                finally:
+                    entry.launches = _held_launches(launches)
                 pool[1] += 1
                 cur.wait_stream(side)
                 STATS["captures"] += 1
                 STATS["capture_s"] += time.perf_counter() - t0
-                entry.graph, entry.outputs = graph, outputs
-            entry.graph.replay()
+                entry.graph, entry.outputs, entry.counts = graph, outputs, dict(counts)
+            with timing.span("ptts.graph.replay", key=head):
+                _replay(entry)
             STATS["replays"] += 1
             return entry.outputs

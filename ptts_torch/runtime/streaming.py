@@ -14,7 +14,10 @@ on the device at the frame index, a device counter (as are the KV and Mimi
 ring cursors), and the chunk with its liveness flags comes back in one copy
 into pinned host memory, overlapped with the next frame's device work. With
 engine.graphs the frame is one CUDA graph replay (runtime/graphs), the
-counterpart of the JAX package's jitted fused_stream_step.
+counterpart of the JAX package's jitted fused_stream_step. The frame body
+launches the marker kernels (ops/cuda/markers) before its FlowLM frames,
+before its Mimi decode and at its end, so a device trace splits every
+replayed step into its FlowLM and its Mimi stretch.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 from .. import api
 from ..config import FlowLMConfig, KernelFlags
 from ..models import flowlm, mimi_stream
+from ..ops.cuda import markers
 from ..rng import frame_noise
 from ..text import estimate_frames, prepare_text
 from .graphs import GraphCache
@@ -96,17 +100,20 @@ def fused_stream_step(fw, mw, cache: flowlm.KVCache, mimi_state, x: torch.Tensor
     int16 PCM (quantize_i16_device); ``pack_flags`` (int16 only) appends the
     pre-step and post-step done flags as two columns. Returns (cache,
     mimi_state, x, pcm [B, S] or [B, S + 2], eos, eos_step, done)."""
+    markers.device_mark(markers.FLOWLM, x)
     if noise.dim() == 3:
         noise = _noise_rows(noise, frame_idx)
     was_done = done
     cache, x, scaled, eos, eos_step, done = flow_frame_step(
         fw, cache, x, noise, time_embs, frame_idx, eos_step, done, cfg, eos_enabled,
         eos_threshold, eos_min_frames, eos_after, max_frames, num_steps, flags)
+    markers.device_mark(markers.MIMI, x)
     mimi_state, pcm = mimi_stream.decode_stream(mw, mimi_state, scaled[:, None, :], mcfg)
     if emit_i16:
         pcm = quantize_i16_device(pcm)
     if pack_flags:
         pcm = _pack(pcm, was_done, done)
+    markers.device_mark(markers.END, x)
     return cache, mimi_state, x, pcm, eos, eos_step, done
 
 
@@ -122,6 +129,7 @@ def fused_stream_steps(fw, mw, cache: flowlm.KVCache, mimi_state, x: torch.Tenso
     k one-frame chunks). Returns (cache, mimi_state, x, pcm [k, B, S], eos
     [k, B], eos_step, done, was_done [k, B], frame_idx): chunk j of stream b
     is live iff not was_done[j, b]."""
+    markers.device_mark(markers.FLOWLM, x)
     scaled_k, eos_k, wd_k = [], [], []
     for _ in range(k):
         wd_k.append(done)
@@ -132,6 +140,7 @@ def fused_stream_steps(fw, mw, cache: flowlm.KVCache, mimi_state, x: torch.Tenso
         scaled_k.append(scaled)
         eos_k.append(eos)
         frame_idx = frame_idx + 1
+    markers.device_mark(markers.MIMI, x)
     mimi_state, pcm = mimi_stream.decode_stream(mw, mimi_state, torch.stack(scaled_k, 1), mcfg)
     B = pcm.shape[0]
     pcm_k = pcm.reshape(B, k, -1).transpose(0, 1)                # [k, B, S]
@@ -140,6 +149,7 @@ def fused_stream_steps(fw, mw, cache: flowlm.KVCache, mimi_state, x: torch.Tenso
         pcm_k = quantize_i16_device(pcm_k)
     if pack_flags:
         pcm_k = _pack(pcm_k, wd_k, done.expand_as(wd_k))
+    markers.device_mark(markers.END, x)
     return (cache, mimi_state, x, pcm_k, torch.stack(eos_k), eos_step, done, wd_k,
             frame_idx)
 
