@@ -13,21 +13,39 @@ and (c). Each phase's seconds are printed:
   2. build   -- nvcc builds the hand-written kernels from ptts_torch/csrc;
                 ptxas registers, shared memory and spills; where the toolkit
                 has cuobjdump, the HMMA (tensor-core) instructions of each
-                kernel, and a bf16 kernel without one fails
+                kernel, and a bf16 kernel without one fails (but the
+                decode attention's, a GEMV on the CUDA cores by design)
   3. kernels -- each CUDA kernel against its plain PyTorch version on the same
                 inputs at main-path shapes, f32 (gate 1e-4) and bf16 (5e-2),
                 max error relative to the largest reference value. At each
                 shape: the kernel's device time (profiler kernel events,
-                median of 30 launches, each after an L2 flush), the wrapper's
-                host-clock time per call, the bound (bytes or FLOPs at the
-                H100's published
-                peaks) and the share device time / bound, the plain
+                median of 30 launches, each after an L2 flush; CUDA events
+                of the call once the process's profiler loses its events,
+                listed under "profiler_lost"), the wrapper's host-clock
+                time per call, the bound (bytes or FLOPs at the H100's
+                published peaks) and the share device time / bound, the plain
                 version's device time, and library_ms: scaled_dot_product_
                 attention on the rotated [B, H, T, D] q/k/v with the same
                 mask (attention only: no RoPE, no split). The shapes are
                 B1_CASES and B2_CASES, and every (B, T) that a launch
                 counter of another phase recorded, in this process or in
                 the bench's and its HTTP leg's (each in f32 and bf16)
+  3d. decode -- the decode attention kernel (ops/cuda/decode_attention)
+                against its plain version (the masked einsum) at the main
+                path's shapes, on KVCache.valid_mask past ring wraps at each
+                cell's share of valid columns, and at every other (dtype,
+                B, Tmax) a phase launched; gates tools/sanitize.DECODE_GATES
+                (max error over max |plain|: f32 1e-4, bf16 1.5e-2; and in
+                bf16 the error's norm over the plain output's, 1e-2), and at
+                the main path's bf16 shapes two wrong kernels -- K/V rounded
+                to fp8, the first column of each split dropped -- must each
+                fail both. The call's device time (CUDA events, median of
+                30, L2 flushed), the main kernel's and the combine's
+                (profiler), the bound (the valid columns' K/V rows, q and
+                the output at 3.35 TB/s; the mask's bytes left out) and
+                share, the einsum's device time and library_ms:
+                scaled_dot_product_attention on the same q, cache views and
+                mask; runs right after phase 3
   4. slice   -- a full-size synthetic checkpoint through ptts_torch.api:
                 generate("Hello world!") and a 4-prompt batch_generate; PCM
                 finite, frames_used * 1920 samples; both kernels launched
@@ -39,8 +57,9 @@ and (c). Each phase's seconds are printed:
                 8-frame StreamingSession (EOS off) on the card against the
                 CPU, by frame, gated by the model's own amplification: frames
                 1-2 within 1e-4 of max, each later frame within 2x the same
-                frame's reading with B1's plain version on the card (an
-                engine with prefill_impl="plain", run in this call) plus 2 LSB;
+                frame's reading with the kernels' plain versions on the card
+                (an engine with prefill_impl="plain", decode_impl="einsum",
+                run in this call) plus 2 LSB;
                 the whole-session reading against a flat 1e-3 is printed
                 only; the streamed int16 within 8 LSB of the quantized
                 offline PCM; time to first chunk (first call, warm), per-chunk
@@ -81,9 +100,10 @@ and (c). Each phase's seconds are printed:
                 on 2 shards (streams per chip, per-step wall and its
                 admit/dispatch/collect split, kernels per step)
  10. flags   -- the kernel switches on the card (f32): (a) an engine with
-                KernelFlags(prefill_impl="plain", window_impl="plain")
-                launches neither kernel in an 8-frame generate_full, whose
-                latents and PCM are within 1e-3 of the kernel engine's; (b)
+                KernelFlags(prefill_impl="plain", window_impl="plain",
+                decode_impl="einsum") launches none of the three kernels in
+                an 8-frame generate_full, whose latents and PCM are within
+                1e-3 of the kernel engine's; (b)
                 decode_impl="blocked" against "einsum", latents within 1e-3;
                 (c) validate=True prints one maxdiff line per layer and frame,
                 each within 1e-4 of max, and returns the einsum's result; (d)
@@ -96,8 +116,9 @@ and (c). Each phase's seconds are printed:
                 every leaf 256-byte aligned; weights_s of the f32 and bf16
                 engines (checkpoint read, host pack, copy); (b)
                 generate_full, Context.stream and phase 8 (a)'s requests
-                through a 4-slot batcher: frames as asked, B1 (and B2 in
-                generate_full) launched in bf16 only, the first two frames'
+                through a 4-slot batcher: frames as asked, B1 and the
+                decode attention (and B2 in generate_full) launched in bf16
+                only, the first two frames'
                 latents within 8% of max of the f32 card run (the stream's
                 and the batcher's recorded from their frame step, every
                 request's; the PCM of the random model clips and amplifies
@@ -151,21 +172,23 @@ and (c). Each phase's seconds are printed:
                 = 1 and 8, serial and pipelined, at most 5 s a point, and
                 bench_batch_sweep at B = 16 and 32, 10 frames, 1 repeat --
                 each row printed with the card's name and power limit
-Launch counts are set to 0 before each of phases 4, 6, 7, 12 (a) and (c) and 14
-and read after; phase 13 sums them over its runs, phase 8 over its serving
-runs alone (B2 must stay at 0 there), phase 9 over its sharded serving runs
-and the dry run alone, phase 10 over (a)'s plain run and over (b)-(c)'s
-runs, phase 11 over its bf16 runs (the f32 references excluded); phase 12
-(b) reads the counts
-that the bench's own process and its HTTP leg's report. Every reset first
-keeps the shapes launched since the last one (SEEN): phase 3 reads them.
+Launch counts (B1, B2 and the decode attention, each at every graph
+replay too) are set to 0 before each of phases 4, 6, 7, 12 (a) and (c)
+and 14 and read after; phase 13 sums them over its runs, phase 8 over its
+serving runs alone (B2 must stay at 0 there), phase 9 over its sharded
+serving runs and the dry run alone, phase 10 over (a)'s plain run and
+over (b)-(c)'s runs, phase 11 over its bf16 runs (the f32 references
+excluded); phase 12 (b) reads the counts that the bench's own process and
+its HTTP leg's report. Every reset first keeps the shapes launched since
+the last one (SEEN): phases 3 and 3d read them. The decode attention must
+be launched on every path but phase 10's, and not there.
 The int16 gates of phases 6 and 8 (c) let a clipping waveform fall back to
 its f32 view at 1e-3 of max (the random full-size PCM clips).
 Printed last: {"stream": ...}, {"serve": ...}, {"mesh": ...}, {"flags": ...},
 {"bf16": ...}, {"bench": ...}, {"graphs": ...}, {"tools": ...} and
 {"phase_s": ...} lines, then
 {"kernels": [...]} (each kernel's cases, one for each launched shape in
-each dtype), then
+each dtype), {"decode_kernel": [...]} (phase 3d's cases), then
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -195,6 +218,7 @@ from ptts_torch.config import KernelFlags  # noqa: E402
 from ptts_torch.io.wav import load_wav, quantize_i16  # noqa: E402
 from ptts_torch.models import flowlm, mimi  # noqa: E402
 from ptts_torch.ops.cuda import build  # noqa: E402
+from ptts_torch.ops.cuda import decode_attention as da  # noqa: E402
 from ptts_torch.ops import rope  # noqa: E402
 from ptts_torch.ops.cuda import fused_attention as fa  # noqa: E402
 from ptts_torch.parallel import mesh as pmesh  # noqa: E402
@@ -211,7 +235,10 @@ SOURCE = "ptts_torch/csrc/fused_attention.cu"
 PALLAS = "ptts_tpu/ops/pallas/fused_attention.py"
 GATES = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 FRAME_SAMPLES = 1920
-KERNELS = ("causal_attention_qkv", "window_attention_qkv")
+KERNELS = ("causal_attention_qkv", "window_attention_qkv", "decode_attention")
+WRAPPERS = {"causal_attention_qkv": fa.causal_attention_qkv,
+            "window_attention_qkv": fa.window_attention_qkv,
+            "decode_attention": da.decode_attention}
 PROMPTS = ["Hello world!", "The quick brown fox jumps over the lazy dog.", "One, two, three.",
            "This is a longer sentence about nothing in particular.", "Streaming speech.",
            "Eight streams advance in lockstep, one frame per step.", "Short.",
@@ -236,9 +263,9 @@ SEEN = {name: collections.Counter() for name in KERNELS}
 
 def reset_launches() -> None:
     for name in KERNELS:
-        SEEN[name].update(getattr(fa, name).shapes)
-        getattr(fa, name).launches = 0
-        getattr(fa, name).shapes.clear()
+        SEEN[name].update(WRAPPERS[name].shapes)
+        WRAPPERS[name].launches = 0
+        WRAPPERS[name].shapes.clear()
 
 
 def parse_shapes(by_name: dict) -> dict:
@@ -255,13 +282,13 @@ def parse_shapes(by_name: dict) -> dict:
 
 
 def read_launches() -> dict:
-    return {name: getattr(fa, name).launches for name in KERNELS}
+    return {name: WRAPPERS[name].launches for name in KERNELS}
 
 
 def read_shapes() -> dict:
     """{kernel: {"dtype B=.. T=..": launches}} since the last reset_launches()."""
     return {name: {f"{d} B={b} T={t}": n
-                   for (d, b, t), n in sorted(getattr(fa, name).shapes.items())}
+                   for (d, b, t), n in sorted(WRAPPERS[name].shapes.items())}
             for name in KERNELS}
 
 
@@ -320,6 +347,9 @@ def flush_l2() -> None:
     _FLUSH[0].sum()
 
 
+PROFILER_LOST = []   # kernel_device_ms's readings taken by CUDA events instead
+
+
 def kernel_device_ms(fn, kernel: str, iters: int = 30, warmup: int = 3,
                      attempts: int = 3) -> float:
     """Median device time per launch of the kernel whose name contains
@@ -329,7 +359,10 @@ def kernel_device_ms(fn, kernel: str, iters: int = 30, warmup: int = 3,
     The profiler now and then loses a whole session's device events (seen on
     the H100 machine after some tens of sessions in one process): a session
     that saw fewer than half of the launches is run again, up to
-    ``attempts`` times."""
+    ``attempts`` times. Once a process's profiler has lost them that often
+    it does not recover: the reading is then call_device_ms(fn) (CUDA
+    events around the whole call), and ``kernel`` is listed in
+    PROFILER_LOST, which main() prints."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -345,7 +378,9 @@ def kernel_device_ms(fn, kernel: str, iters: int = 30, warmup: int = 3,
         if len(durs) >= 0.5 * iters:
             return float(np.median(durs)) / 1e3
         print(f"  profiler session saw {len(durs)} of {iters} {kernel} launches; again")
-    check(False, f"kernel_device_ms: {attempts} profiler sessions lost the {kernel} launches")
+    print(f"  {attempts} profiler sessions lost the {kernel} launches: CUDA events of the call")
+    PROFILER_LOST.append(kernel)
+    return call_device_ms(fn, iters, warmup)
 
 
 def call_device_ms(fn, iters: int = 30, warmup: int = 3) -> float:
@@ -459,7 +494,7 @@ def phase_build() -> None:
         print("build: no cuobjdump in the toolkit; HMMA instructions not counted")
     for name, n in counts.items():
         print(f"  sass: {n} HMMA in {name}")
-        if "bfloat16" in name or "bf16" in name:
+        if ("bfloat16" in name or "bf16" in name) and "decode_attn" not in name:
             check(n > 0, f"the bf16 kernel {name} has no HMMA instruction")
 
 
@@ -550,7 +585,7 @@ def phase_kernels(seen: dict) -> dict:
     the plain version's and the library call's times."""
     b1_cases, b2_cases = (
         cases + tuple(sorted({(b, t) for _, b, t in seen[name]} - set(cases)))
-        for name, cases in zip(KERNELS, (B1_CASES, B2_CASES)))
+        for name, cases in zip(KERNELS[:2], (B1_CASES, B2_CASES)))
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -615,6 +650,140 @@ def phase_kernels(seen: dict) -> dict:
             results["window_attention_qkv"].append(case)
             check(rel_e <= GATES[dtype], f"B2 {tag} T={T}: rel err {rel_e:.3e} > {GATES[dtype]}")
     return results
+
+
+# Phase 3d's shapes: (dtype, B, Tmax, prefix columns t0, prefix lengths
+# [lo, hi], decode columns written [0, hi), offline). bf16-serve-long's pool
+# (40-frame voices + 38-94 ids; 150-375-frame streams, ~139 decode columns
+# on average), bf16-serve-short's (4-16 ids, 12-62 frames), f32-offline-
+# long's length groups (no wrap: prompts to 153 columns, 2/3 of 375 frames
+# written), and B = 1 (Context.stream).
+DECODE_CASES = ((torch.bfloat16, 256, 544, 160, (78, 134), 278, False),
+                (torch.bfloat16, 256, 128, 64, (44, 56), 63, False),
+                (torch.float32, 16, 528, 153, (61, 153), 250, True),
+                (torch.bfloat16, 1, 200, 40, (20, 40), 150, False),
+                (torch.float32, 1, 200, 40, (20, 40), 150, True))
+
+
+def decode_inputs(dtype, B: int, Tmax: int, t0: int, prefix, decoded: int, offline: bool,
+                  seed: int = 0):
+    """q [B, 16, 64] and one layer's random K/V [B, Tmax, 16, 64] on the card,
+    with the mask of a KVCache whose decode ring (the columns from t0 on)
+    has wrapped three times (``offline``: not at all, every stream started
+    at t0 and ``decoded`` columns written), prefixes uniform in ``prefix``
+    and decode spans uniform in [0, ``decoded``)."""
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    ring = Tmax - t0
+    cursor = t0 + decoded if offline else t0 + 3 * ring + 17
+    start = (np.full(B, t0) if offline
+             else cursor - np.minimum(rng.integers(0, decoded, B), ring - 1))
+    cache = flowlm.KVCache(
+        k=torch.empty(1, B, Tmax, 0, 0, device=dev), v=None,   # the mask reads Tmax alone
+        prefix_len=torch.from_numpy(rng.integers(prefix[0], prefix[1] + 1, B)).to(dev,
+                                                                                  torch.int32),
+        start=torch.from_numpy(start).to(dev, torch.int32),
+        cursor=torch.tensor(cursor, dtype=torch.int32, device=dev), t0=t0)
+    mask = cache.valid_mask()
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev, dtype)
+               for s in ((B, 16, 64), (B, Tmax, 16, 64), (B, Tmax, 16, 64)))
+    return q, k, v, mask
+
+
+def rms_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """||got - want|| / ||want||, in f32."""
+    return ((got.float() - want.float()).norm() / want.float().norm().clamp(min=1e-30)).item()
+
+
+def decode_controls(q, k, v, mask, splits: int) -> dict:
+    """Two wrong kernels, made by feeding the right one wrong inputs, that
+    the bf16 gates must tell from it: {"fp8": K and V rounded to
+    float8_e4m3fn, "drop": the first valid column of every split's share
+    (the kernel's [s * n // splits, (s + 1) * n // splits) of a stream's n
+    valid columns) taken out of the mask}. Their outputs."""
+    fp8 = [x.to(torch.float8_e4m3fn).to(x.dtype) for x in (k, v)]
+    dropped = mask.clone()
+    for b in range(mask.shape[0]):
+        cols = torch.nonzero(mask[b]).flatten().tolist()
+        n = len(cols)
+        for s in range(splits):
+            if s * n // splits < (s + 1) * n // splits:
+                dropped[b, cols[s * n // splits]] = False
+    return {"fp8": da.decode_attention(q, *fp8, mask), "drop": da.decode_attention(q, k, v, dropped)}
+
+
+def phase_decode(seen) -> list:
+    """Phase 3d: the decode attention kernel at DECODE_CASES and at every
+    other (dtype, B, Tmax) in ``seen`` (launches by shape) against the
+    masked einsum; its times, bound and share, the einsum's and the library
+    call's times (the profiler's kernel and combine times at DECODE_CASES
+    alone: each profiler session risks the process's device events). At
+    DECODE_CASES in bf16, the two controls of
+    decode_controls, each of which must fail both gates the kernel passes."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    tag = {v: k for k, v in dtypes.items()}
+    held = {(tag[c[0]], c[1], c[2]) for c in DECODE_CASES}
+    # a launched shape with no case of its own: a 3-times-wrapped ring over
+    # the cache's second half, prefixes of a quarter to a half of it
+    extra = [(dtypes[d], B, T, T // 2, (T // 4, T // 2), max(T - T // 2, 1), False)
+             for d, B, T in sorted(set(seen) - held)]
+    gates, rms_gate = sanitize.DECODE_GATES, sanitize.DECODE_RMS_GATE
+    cases = []
+    for i, (dtype, B, Tmax, t0, prefix, decoded, offline) in enumerate(DECODE_CASES + tuple(extra)):
+        q, k, v, mask = decode_inputs(dtype, B, Tmax, t0, prefix, decoded, offline,
+                                      seed=B + Tmax)
+        got = da.decode_attention(q, k, v, mask)
+        want = flowlm.decode_attention_masked(q, k, v, mask)
+        torch.cuda.synchronize()
+        what = f"decode {tag[dtype]} {B}x{Tmax}"
+        check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+        abs_e, rel_e = rel_err(got, want)
+        rms_e = rms_rel(got, want)
+        valid = int(mask.sum())
+        esize = torch.finfo(dtype).bits // 8
+        nbytes = (2 * valid + 2 * B) * 16 * 64 * esize
+        bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        splits = da.splits_for(B, Tmax, sms)
+        call = lambda: da.decode_attention(q, k, v, mask)  # noqa: E731
+        ms = call_device_ms(call)
+        main = i < len(DECODE_CASES)   # the profiler's split of the call at these alone
+        kernel_ms = kernel_device_ms(call, "decode_attn_kernel") if main else None
+        combine_ms = (kernel_device_ms(call, "decode_attn_combine") if splits > 1 else 0.0
+                      ) if main else None
+        plain_ms = call_device_ms(lambda: flowlm.decode_attention_masked(q, k, v, mask))
+        library_ms = call_device_ms(lambda: sdpa(q[:, :, None], k.transpose(1, 2),
+                                                 v.transpose(1, 2), attn_mask=mask[:, None, None]))
+        case = dict(dtype=tag[dtype], B=B, T=Tmax, launched=not main,
+                    valid_share=valid / (B * Tmax), splits=splits, ms=ms, kernel_ms=kernel_ms,
+                    combine_ms=combine_ms, host_us=host_us(call), bytes=nbytes,
+                    bound_ms=bound_ms, bound_by="bytes", share=bound_ms / ms, plain_ms=plain_ms,
+                    library_ms=library_ms, max_abs_err=abs_e, max_rel_err=rel_e, rms_rel_err=rms_e)
+        controls = ""
+        if dtype == torch.bfloat16 and main:
+            case["controls"] = {name: dict(max_rel_err=rel_err(out, want)[1],
+                                           rms_rel_err=rms_rel(out, want))
+                                for name, out in decode_controls(q, k, v, mask, splits).items()}
+            controls = "; controls " + ", ".join(
+                f"{n} rel {c['max_rel_err']:.3e} rms {c['rms_rel_err']:.3e}"
+                for n, c in case["controls"].items())
+        print(f"decode_attention {tag[dtype]} B={B} Tmax={Tmax}: valid "
+              f"{case['valid_share']:.1%}, {splits} split(s); rel {rel_e:.3e}, rms {rms_e:.3e}"
+              f"{controls}; call {ms:.4f} ms (events, median of 30, L2 flushed)"
+              + (f" = kernel {kernel_ms:.4f} + combine {combine_ms:.4f} ms (profiler)" if main
+                 else "") + f"; wrapper host "
+              f"{case['host_us']:.1f} us/call; bound {bound_ms:.4f} ms by bytes "
+              f"({nbytes / 1e6:.2f} MB), share {case['share']:.1%}; einsum {plain_ms:.4f} ms, "
+              f"library {library_ms:.4f} ms (scaled_dot_product_attention, same mask)")
+        check(rel_e <= gates[dtype], f"{what}: rel err {rel_e:.3e} > {gates[dtype]}")
+        if dtype == torch.bfloat16:
+            check(rms_e <= rms_gate, f"{what}: rms err {rms_e:.3e} > {rms_gate}")
+        for name, c in case.get("controls", {}).items():
+            check(c["max_rel_err"] > gates[dtype] and c["rms_rel_err"] > rms_gate,
+                  f"{what}: the {name} control passes a gate ({c})")
+        cases.append(case)
+    return cases
 
 
 def phase_slice(model_dir: str):
@@ -688,9 +857,9 @@ def session_pcm(engine, texts, params) -> np.ndarray:
 def session_drift(engine, plain_engine, cpu_engine, text: str, params) -> dict:
     """A one-stream StreamingSession on the card against the CPU, by frame:
     max |card - CPU| of each frame's f32 view over max |CPU|. Run twice on
-    the card: with the kernels (``engine``) and with B1's plain version
-    (``plain_engine``, prefill_impl="plain"), which carries the rest of the
-    card's arithmetic. The random model amplifies either's rounding frame by
+    the card: with the kernels (``engine``) and with their plain versions
+    (``plain_engine``: prefill_impl="plain", decode_impl="einsum"), which
+    carries the rest of the card's arithmetic. The random model amplifies either's rounding frame by
     frame, so the gate follows that amplification, from this same call:
     frames 1-2 within 1e-4; from frame 3 on, each frame within 2x the plain
     run's reading of that frame plus 2 LSB. The whole-session reading is
@@ -698,7 +867,7 @@ def session_drift(engine, plain_engine, cpu_engine, text: str, params) -> dict:
     cpu = session_pcm(cpu_engine, [text], params)
     lsb2 = 2.0 / 32767.0 / max(float(np.abs(cpu).max()), 1e-30)
     out = {}
-    for label, eng in (("kernels", engine), ("B1 plain", plain_engine)):
+    for label, eng in (("kernels", engine), ("plain", plain_engine)):
         gpu = session_pcm(eng, [text], params)
         check(gpu.shape == cpu.shape == (1, params.num_frames * FRAME_SAMPLES),
               f"session shapes {gpu.shape} {cpu.shape}")
@@ -707,10 +876,10 @@ def session_drift(engine, plain_engine, cpu_engine, text: str, params) -> dict:
         print(f"stream: {params.num_frames}-frame session, card ({label}) vs CPU f32 view rel "
               f"{rel:.3e} (flat 1e-3 reading, printed); by frame "
               f"{[f'{x:.2e}' for x in out[label]['by_frame']]}")
-    got, plain = out["kernels"]["by_frame"], out["B1 plain"]["by_frame"]
+    got, plain = out["kernels"]["by_frame"], out["plain"]["by_frame"]
     limits = [1e-4 if i < 2 else 2.0 * plain[i] + lsb2 for i in range(len(got))]
     out["limits"] = limits
-    print(f"stream: session gate by frame (1e-4 at frames 1-2, then 2x B1 plain + 2 LSB = "
+    print(f"stream: session gate by frame (1e-4 at frames 1-2, then 2x plain + 2 LSB = "
           f"{lsb2:.2e}): limits {[f'{x:.2e}' for x in limits]}")
     for i, (g, lim) in enumerate(zip(got, limits)):
         check(g <= lim, f"stream card vs CPU frame {i + 1}: {g:.3e} > {lim:.3e}")
@@ -1416,9 +1585,10 @@ def phase_flags(ctx, plain_engine, tmp: str) -> dict:
     p8 = api.Params(seed=3, num_frames=8, eos_enabled=False)
     ref = engine.generate_full(FLAGS_TEXT, params=p8)
 
-    # (a) both switches on "plain": no launch, and the kernels' result
-    check((plain_engine.prefill_impl, plain_engine.window_impl) == ("plain", "plain"),
-          f"flags (a): resolved {plain_engine.prefill_impl}, {plain_engine.window_impl}")
+    # (a) the switches on the plain versions: no launch, and the kernels' result
+    check((plain_engine.prefill_impl, plain_engine.window_impl, plain_engine.flags.decode_impl)
+          == ("plain", "plain", "einsum"), f"flags (a): resolved {plain_engine.prefill_impl}, "
+          f"{plain_engine.window_impl}, {plain_engine.flags.decode_impl}")
     reset_launches()
     out = plain_engine.generate_full(FLAGS_TEXT, params=p8)
     sync("cuda")
@@ -1431,7 +1601,8 @@ def phase_flags(ctx, plain_engine, tmp: str) -> dict:
                             ("pcm", out.audio.samples, ref.audio.samples)):
         _, rels[name] = rel_err(torch.from_numpy(got), torch.from_numpy(want))
         check(rels[name] <= 1e-3, f"flags (a): plain vs kernels {name} {rels[name]:.3e} > 1e-3")
-    print(f"flags (a): prefill_impl=plain, window_impl=plain: launches {plain_launches}; 8-frame "
+    print(f"flags (a): prefill_impl=plain, window_impl=plain, decode_impl=einsum: launches "
+          f"{plain_launches}; 8-frame "
           f"generate_full vs the kernel engine: latents rel {rels['latents']:.3e}, PCM rel "
           f"{rels['pcm']:.3e} (gate 1e-3)")
 
@@ -1448,6 +1619,8 @@ def phase_flags(ctx, plain_engine, tmp: str) -> dict:
             contextlib.redirect_stdout(printed):
         validated = engine.generate_full(FLAGS_TEXT, params=p8, decode_audio=False)
     launches = read_launches()
+    check(launches["decode_attention"] == 0,
+          f"flags (b)-(c): einsum and blocked runs launched the decode kernel ({launches})")
     lines = [ln for ln in printed.getvalue().splitlines()
              if ln.startswith("[ptts] validate decode_attention maxdiff=")]
     check(len(lines) == n_layers * 8, f"flags (c): {len(lines)} validate lines for "
@@ -1588,6 +1761,7 @@ def phase_bf16(model_dir: str, ctx, stream: dict, serve: dict) -> dict:
           and len(got.audio.samples) == 8 * FRAME_SAMPLES, "bf16 generate_full: frames or PCM")
     bf16_shapes_ok(shapes, "causal_attention_qkv", "generate_full")
     bf16_shapes_ok(shapes, "window_attention_qkv", "generate_full")
+    bf16_shapes_ok(shapes, "decode_attention", "generate_full")
     rel_gen = first_frames_rel(got.latents[:2], want.latents[:2])
     check(rel_gen <= 0.08, f"bf16 generate_full: first two latents {rel_gen:.3e} > 8%")
 
@@ -1605,6 +1779,7 @@ def phase_bf16(model_dir: str, ctx, stream: dict, serve: dict) -> dict:
     check(len(chunks) == 8 and all(c.pcm_i16.shape == (FRAME_SAMPLES,) for c in chunks),
           f"bf16 stream: {len(chunks)} chunks")
     bf16_shapes_ok(stream_shapes, "causal_attention_qkv", "stream")
+    bf16_shapes_ok(stream_shapes, "decode_attention", "stream")
     check(stream_launches["window_attention_qkv"] == 0, "bf16 stream: B2 launched")
     lat_b, lat_f = first_two_latents(rec_b), first_two_latents(rec_f)
     check(lat_b.shape == lat_f.shape == (2, cfg.latent_dim) and np.isfinite(lat_b).all(),
@@ -1627,6 +1802,7 @@ def phase_bf16(model_dir: str, ctx, stream: dict, serve: dict) -> dict:
     sync("cuda")
     serve_launches, serve_shapes = read_launches(), read_shapes()
     bf16_shapes_ok(serve_shapes, "causal_attention_qkv", "serve")
+    bf16_shapes_ok(serve_shapes, "decode_attention", "serve")
     check(serve_launches["window_attention_qkv"] == 0, "bf16 serve: B2 launched")
     for rid, f in zip(rids, SERVE_FRAMES):
         check(res[rid].frames == f and res[rid].pcm_i16.shape == (f * FRAME_SAMPLES,),
@@ -2066,9 +2242,10 @@ def main() -> int:
         ctx, launches = timed("4 slice", phase_slice, model_dir)
         cpu_ctx = api.load_dir(model_dir, device="cpu")
         timed("5 parity", phase_parity, cpu_ctx, ctx)
-        # B1's and B2's plain versions on the card, by the switches alone
+        # the three kernels' plain versions on the card, by the switches alone
         plain_engine = TTSEngine(ctx, flags=KernelFlags(prefill_impl="plain",
-                                                        window_impl="plain"))
+                                                        window_impl="plain",
+                                                        decode_impl="einsum"))
         stream = timed("6 stream", phase_stream, ctx, cpu_ctx, plain_engine)
         cli_launches = timed("7 cli", phase_cli, model_dir, ctx)
         serve = timed("8 serve", phase_serve, ctx, cpu_ctx)
@@ -2084,6 +2261,7 @@ def main() -> int:
     reset_launches()   # the last path's shapes into SEEN
     seen = {name: SEEN[name] + bench_run["shapes"][name] for name in KERNELS}
     results = timed("3 kernels", phase_kernels, seen)
+    decode_cases = timed("3d decode", phase_decode, seen["decode_attention"])
     by_path = {name: {"slice": launches[name], "stream": stream["launches"][name],
                       "cli": cli_launches[name], "serve": serve["launches"][name],
                       "mesh": mesh["launches"][name],
@@ -2108,7 +2286,8 @@ def main() -> int:
                                                              "streaming_s")}}}))
     print(json.dumps({"graphs": graphs_run}))
     print(json.dumps({"tools": tools}))
-    print(json.dumps({"phase_s": PHASE_S, "total_s": time.perf_counter() - t_start}))
+    print(json.dumps({"phase_s": PHASE_S, "total_s": time.perf_counter() - t_start,
+                      "profiler_lost": PROFILER_LOST}))
 
     kernels = []
     for name, replaces, headline in (("causal_attention_qkv", f"{PALLAS}:361", (8, 128)),
@@ -2135,6 +2314,20 @@ def main() -> int:
             "cases": cases,
         })
     print(json.dumps({"kernels": kernels}))
+    # the decode attention on every path but flags (a)'s plain engine and (b)-(c)'s
+    # einsum and blocked runs; a case for every launched shape
+    decode_paths, launched = by_path["decode_attention"], sorted(seen["decode_attention"])
+    print(json.dumps({"decode_kernel": {
+        "launches_by_path": decode_paths,
+        "launched_shapes": {f"{d} B={b} T={t}": seen["decode_attention"][(d, b, t)]
+                            for d, b, t in launched},
+        "cases": decode_cases}}))
+    for path, n in decode_paths.items():
+        check((n == 0) == path.startswith("flags"), f"decode_attention launched {n} times on "
+              f"the {path} path")
+    held = {(c["dtype"], c["B"], c["T"]) for c in decode_cases}
+    check(set(launched) <= held, f"decode_attention: launched at {sorted(set(launched) - held)} "
+          f"with no case in phase 3d")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -63,6 +63,7 @@ from . import api, synth
 from .config import FlowLMConfig, KernelFlags, MimiConfig
 from .io.safetensors import SafetensorsFile
 from .models import flowlm, mimi
+from .ops.cuda import decode_attention as da
 from .ops.cuda import fused_attention as fa
 from .runtime.graphs import GraphCache
 
@@ -607,9 +608,9 @@ def run_http_leg() -> dict:
 
 
 def kernel_counts() -> dict:
-    """Launches of each kernel in this process, by (dtype, B, T), and the
-    RoPE tables built (one per new T)."""
-    wrappers = (fa.causal_attention_qkv, fa.window_attention_qkv)
+    """Launches of each kernel in this process, by (dtype, B, T) (T is the
+    decode attention's Tmax), and the RoPE tables built (one per new T)."""
+    wrappers = (fa.causal_attention_qkv, fa.window_attention_qkv, da.decode_attention)
     return {"launches": {f.__name__: f.launches for f in wrappers},
             "shapes": {f.__name__: {f"{d} B={b} T={t}": n
                                     for (d, b, t), n in sorted(f.shapes.items())}

@@ -106,10 +106,12 @@ class KernelFlags:
     fallback for the other. An unknown value raises ValueError.
     """
 
-    # AR decode attention: "auto" (== "einsum", the masked einsum over
-    # KVCache.valid_mask) or "blocked" (ops/attention.decode_attention_blocked:
-    # online softmax over cache blocks up to the cursor; it assumes a cache
-    # that does not wrap, so the continuous batcher refuses it)
+    # AR decode attention over KVCache.valid_mask: "auto" (ops/cuda/
+    # decode_attention: the kernel on a CUDA tensor, the masked einsum on
+    # the CPU), "einsum" (ops/attention.decode_attention_masked on any
+    # device) or "blocked" (ops/attention.decode_attention_blocked: online
+    # softmax over cache blocks up to the cursor; it assumes a cache that
+    # does not wrap, so the continuous batcher refuses it)
     decode_impl: str = "auto"
     # Mimi windowed attention: "auto" (the kernel on a CUDA device, the plain
     # version on the CPU), "kernel" (B2, ops/cuda/fused_attention.

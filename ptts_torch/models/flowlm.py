@@ -12,8 +12,10 @@ runtime/graphs.GraphCache, each chunk is a CUDA graph replay.
 The prompt prefill runs the fused RoPE + causal attention kernel
 (ops/cuda/fused_attention.causal_attention_qkv) or, with
 ``attn_impl="plain"``, its plain version; the per-frame decode attention is
-the masked einsum, as the JAX package leaves it to XLA, or with
-``KernelFlags.decode_impl="blocked"`` the blocked online softmax
+the decode attention kernel (ops/cuda/decode_attention.decode_attention,
+the masked einsum on CPU tensors), or with ``KernelFlags.decode_impl``
+"einsum" the masked einsum (ops/attention.decode_attention_masked, as the
+JAX package leaves it to XLA) and "blocked" the blocked online softmax
 (ops/attention.decode_attention_blocked).
 """
 
@@ -31,6 +33,7 @@ from .. import convert
 from ..config import FlowLMConfig, KernelFlags, resolve_kernel_impl
 from ..ops.activations import gelu_erf, silu
 from ..ops.attention import decode_attention_blocked, decode_attention_masked
+from ..ops.cuda.decode_attention import decode_attention
 from ..ops.cuda.fused_attention import causal_attention_qkv, causal_attention_qkv_plain
 from ..ops.norms import kyutai_rmsnorm, layernorm
 from ..ops.rope import rope_rotate_halves
@@ -42,15 +45,19 @@ DEFAULT_FLAGS = KernelFlags()
 def _decode_attention_dispatch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                                mask: torch.Tensor, scalars: tuple,
                                flags: KernelFlags) -> torch.Tensor:
-    """The decode attention that ``flags.decode_impl`` chooses: "auto" ==
-    "einsum" (decode_attention_masked), or "blocked"
+    """The decode attention that ``flags.decode_impl`` chooses: "auto" (the
+    kernel's wrapper, ops/cuda/decode_attention: the kernel on a CUDA
+    tensor, decode_attention_masked on the CPU), "einsum"
+    (decode_attention_masked on any device) or "blocked"
     (decode_attention_blocked over ``scalars`` = (prefix_len, start, cursor)).
     With ``flags.validate`` and "blocked", runs both, prints
     ``[ptts] validate decode_attention maxdiff=...`` (beside the largest
     |output|) and returns the masked einsum's, as the JAX package does
     (the reference's PTTS_CUDA_VALIDATE pattern). The print reads both
     results back, so validate mode syncs the host once per layer."""
-    if flags.decode_impl != "blocked":
+    if flags.decode_impl == "auto":
+        return decode_attention(q, k_cache, v_cache, mask)
+    if flags.decode_impl == "einsum":
         return decode_attention_masked(q, k_cache, v_cache, mask)
     b = decode_attention_blocked(q, k_cache, v_cache, *scalars)
     if not flags.validate:

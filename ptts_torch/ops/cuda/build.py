@@ -1,7 +1,7 @@
 """Build the hand-written CUDA kernels at first use and load them with ctypes.
 
-``nvcc`` compiles ``ptts_torch/csrc/*.cu`` (the attention kernels and the
-trace markers) for sm_90a into one shared
+``nvcc`` compiles ``ptts_torch/csrc/*.cu`` (the attention kernels, the
+decode attention and the trace markers) for sm_90a into one shared
 library with a plain C interface (no PyTorch headers, so the build takes
 seconds). The library lands in the build directory of utils/compile_cache
 (default ``ptts_torch/_build/``; ``PTTS_COMPILE_CACHE`` moves it) under a
@@ -24,7 +24,8 @@ from pathlib import Path
 from ...utils.compile_cache import build_dir
 
 _PKG = Path(__file__).resolve().parents[2]
-SOURCES = (_PKG / "csrc" / "fused_attention.cu", _PKG / "csrc" / "markers.cu")
+SOURCES = (_PKG / "csrc" / "fused_attention.cu", _PKG / "csrc" / "decode_attention.cu",
+           _PKG / "csrc" / "markers.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -75,6 +76,8 @@ def library() -> ctypes.CDLL:
             lib.ptts_causal_attn_qkv.restype = I
             lib.ptts_window_attn_qkv.argtypes = [P] * 4 + [I] * 5 + [P]
             lib.ptts_window_attn_qkv.restype = I
+            lib.ptts_decode_attn.argtypes = [P] * 6 + [I] * 4 + [ctypes.c_float, I, P]
+            lib.ptts_decode_attn.restype = I
             lib.ptts_mark.argtypes = [I, P]
             lib.ptts_mark.restype = I
             lib.ptts_error_string.argtypes = [I]

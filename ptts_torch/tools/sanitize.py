@@ -21,14 +21,22 @@ pass:
      and uint4 accesses keep the alignment the wrapper gives them. After
      each launch the output bands must be bit-identical to the sentinel and
      the outputs finite and within the kernel-against-plain gates (1e-4 f32,
-     5e-2 bf16, of the largest reference value), at ragged T and lengths.
+     5e-2 bf16, of the largest reference value; the decode attention's
+     DECODE_GATES), at ragged T and lengths.
      The inputs and their bands must come back unchanged too. What this
      proves: no out-of-bounds read reaches a result (a NaN read from a band
      would), and no write lands outside an output, within 4 KiB of the
      tensors. It is weaker than memcheck: an out-of-bounds read whose value
-     a mask discards stays unseen, and so does a write past a band. The kernels' widths are fixed
-     (head dim 64; FlowLM's 16 heads for B1, Mimi's 8 for B2), whatever
-     the model's. On the CPU the phase is reported as not run.
+     a mask discards stays unseen, and so does a write past a band. The decode attention
+     kernel (ops/cuda/decode_attention.py) gets the same treatment on q,
+     the K/V cache, the mask (its bands hold the sentinel, which reads as a
+     valid column, so a read past a mask row pulls a NaN band into the
+     sums), the output and the split scratch, at ragged masks (rows with
+     no valid column and with one) and at one and several splits; the K/V
+     columns the mask leaves out hold NaN, which must not reach the
+     output. The kernels' widths are fixed (head dim 64; FlowLM's 16 heads
+     for B1 and the decode attention, Mimi's 8 for B2), whatever the
+     model's. On the CPU the phase is reported as not run.
   2. **Per-operation NaN trap** (the counterpart of ``jax_debug_nans``): a
      TorchDispatchMode checks the floating outputs of every aten operation
      of one eager ``generate`` for NaN and raises SanitizeError naming the
@@ -36,7 +44,8 @@ pass:
      ``empty_like``, ``empty_strided`` and ``new_empty`` are skipped: their
      memory is uninitialised by contract. The kernel wrappers launch
      through ctypes, not aten, so their outputs are checked under the
-     wrapper's name. The engine is built with ``graphs=False``: a replayed
+     wrapper's name (B1, B2 and the decode attention). The engine is
+     built with ``graphs=False``: a replayed
      CUDA graph shows no operation to the mode. Like jax_debug_nans it
      traps NaN, not Inf (masked scores are -1e30, finite).
   3. **Stage-boundary guards** (PTTS_SANITIZE, utils/sanitize) over a clean
@@ -68,6 +77,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from .. import api, synth
 from ..config import FlowLMConfig, MimiConfig
 from ..models import flowlm, mimi
+from ..ops.attention import _scale, decode_attention_masked
 from ..ops.cuda import build
 from ..ops.cuda import fused_attention as fa
 from ..runtime.engine import TTSEngine
@@ -88,12 +98,24 @@ PHASES = ("guarded kernel launches (out-of-bounds reads and writes)",
           "stage-boundary guards, clean generate",
           "detection self-test (planted NaN weight)")
 GATES = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# the decode attention against its plain version: max |error| over max
+# |plain| by dtype, and in bf16 ||error|| / ||plain|| too. Each bf16 gate
+# lies between the kernel's worst reading at the main path's shapes (max
+# 7.4e-3, one bf16 step of the largest output; norm 3.0e-3, the plain
+# version's own rounding of p) and the lowest of two wrong kernels' (K/V
+# rounded to fp8: 4.1e-2 and 3.8e-2), which chip_smoke phase 3d holds
+DECODE_GATES = {torch.float32: 1e-4, torch.bfloat16: 1.5e-2}
+DECODE_RMS_GATE = 1e-2
 ALIGN = 256                # bytes: the alignment every guarded view keeps
 BAND_BYTES = 4096          # each guard band, a multiple of ALIGN
 SENTINEL = 0xA5            # the byte every output band holds
 B1_HEADS, B2_HEADS, HEAD_DIM = 16, 8, fa.KERNEL_HEAD_DIM
 B1_T, B1_B = (1, 13, 61, 127, 129, 250), (1, 3)
 B2_T, B2_B, B2_CONTEXTS = (1, 13, 250, 251, 1023), 2, (250, 1)
+DECODE_HEADS = 16
+# (B, Tmax, splits): one split and several, a share of one column, the
+# serving pool's 544 columns, a share of 750 columns
+DECODE_CASES = ((1, 1, 1), (3, 37, 1), (3, 37, 2), (2, 544, 17), (5, 129, 3), (2, 1500, 2))
 
 
 # -- phase 1: guarded launches ---------------------------------------------------
@@ -134,6 +156,20 @@ def guarded(shape, dtype: torch.dtype, device, fill: str) -> Guarded:
 def band_intact(g: Guarded) -> bool:
     """True iff both bands still hold SENTINEL bytes, bit for bit."""
     return all(bool((b.view(torch.uint8) == SENTINEL).all()) for b in g.bands())
+
+
+def check_guards(tag: str, ins: dict, outs: dict) -> None:
+    """Raise SanitizeError if an input (``ins``: {key: (Guarded, its
+    value)}) or its bands changed -- NaN bands, or SENTINEL bands for a bool
+    input -- or an output's (``outs``: {key: Guarded}) SENTINEL bands did."""
+    for key, (g, value) in ins.items():
+        bands_ok = (band_intact(g) if g.view.dtype == torch.bool
+                    else all(bool(torch.isnan(b).all()) for b in g.bands()))
+        if not (bands_ok and torch.equal(g.view.view(torch.uint8), value.view(torch.uint8))):
+            raise SanitizeError(f"[sanitize] {tag}: a write landed in input '{key}' or its bands")
+    for key, g in outs.items():
+        if not band_intact(g):
+            raise SanitizeError(f"[sanitize] {tag}: a write landed outside '{key}'")
 
 
 def b1_lengths(B: int, T: int) -> list:
@@ -200,13 +236,8 @@ def guarded_case(name: str, dtype: torch.dtype, B: int, T: int, H: int, launch: 
         launch(views, B, T, H, context)
         want = fa.window_attention_qkv_plain(qkv.view.clone(), context=context, **kw)
         pairs = [(views["out"], want)]
-    for key, (g, value) in ins.items():
-        if not (all(bool(torch.isnan(b).all()) for b in g.bands())
-                and torch.equal(g.view, value)):
-            raise SanitizeError(f"[sanitize] {tag}: a write landed in input '{key}' or its bands")
+    check_guards(tag, ins, outs)
     for key, g in outs.items():
-        if not band_intact(g):
-            raise SanitizeError(f"[sanitize] {tag}: a write landed outside '{key}'")
         if not bool(torch.isfinite(g.view).all()):
             raise SanitizeError(f"[sanitize] {tag}: '{key}' is not finite (an out-of-bounds "
                                 f"read of a NaN band, or an element left unwritten)")
@@ -220,14 +251,90 @@ def guarded_case(name: str, dtype: torch.dtype, B: int, T: int, H: int, launch: 
     return {"case": tag, "rel": rel}
 
 
+def decode_launch(device) -> Callable:
+    """launch(views, B, Tmax, H, splits) of the decode attention's C entry
+    point on ``device``'s current stream; raises on a CUDA error."""
+    lib = build.library()
+
+    def launch(views: dict, B: int, Tmax: int, H: int, splits: int) -> None:
+        with torch.cuda.device(device):
+            rc = lib.ptts_decode_attn(
+                *(views[k].data_ptr() for k in ("q", "k", "v", "mask", "out", "part")), B, Tmax,
+                H, splits, _scale(HEAD_DIM), int(views["q"].dtype == torch.bfloat16),
+                torch.cuda.current_stream().cuda_stream)
+        fa._raise_on(rc, "decode_attention")
+    return launch
+
+
+def decode_mask(B: int, Tmax: int, rng) -> torch.Tensor:
+    """[B, Tmax] bool: row 0 has no valid column, row 1 one (its last), the
+    rest a random prefix and a random run that wraps past the end."""
+    mask = torch.zeros(B, Tmax, dtype=torch.bool)
+    for b in range(B):
+        if b == 1:
+            mask[b, -1] = True
+        elif b > 1:
+            mask[b, :int(rng.integers(0, Tmax + 1))] = True
+            cols = (int(rng.integers(0, Tmax)) + np.arange(int(rng.integers(1, Tmax + 1)))) % Tmax
+            mask[b, torch.from_numpy(cols)] = True
+    return mask
+
+
+def guarded_decode_case(dtype: torch.dtype, B: int, Tmax: int, splits: int, launch: Callable,
+                        device, seed: int = 0) -> dict:
+    """One launch of the decode attention through ``launch(views, B, Tmax,
+    H, splits)`` on guarded views, its masked K/V columns NaN (but in a row
+    with no valid column, which takes them all); the same checks as
+    guarded_case, against decode_attention_masked on the clean cache."""
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed)
+    H = DECODE_HEADS
+    mask = decode_mask(B, Tmax, rng).to(dev)
+    clean = {key: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+             for key, shape in (("q", (B, H, HEAD_DIM)), ("k", (B, Tmax, H, HEAD_DIM)),
+                                ("v", (B, Tmax, H, HEAD_DIM)))}
+    poisoned = (~mask & mask.any(dim=1, keepdim=True))[:, :, None, None]
+    ins, views = {}, {}
+    for key, value in (*clean.items(), ("mask", mask)):
+        if key in ("k", "v"):
+            value = value.masked_fill(poisoned, float("nan"))
+        ins[key] = (guarded(value.shape, value.dtype, dev,
+                            "sentinel" if key == "mask" else "nan"), value)
+        ins[key][0].view.copy_(value)
+        views[key] = ins[key][0].view
+    outs = {"out": guarded((B, H, HEAD_DIM), dtype, dev, "sentinel"),
+            "part": guarded((B * splits * H * (2 + HEAD_DIM),), torch.float32, dev, "sentinel")}
+    for key, g in outs.items():
+        g.view.fill_(float("nan"))  # an element left unwritten stays NaN
+        views[key] = g.view
+    tag = (f"decode_attention {'bf16' if dtype == torch.bfloat16 else 'f32'} B={B} T={Tmax} "
+           f"splits={splits}")
+    launch(views, B, Tmax, H, splits)
+    want = decode_attention_masked(clean["q"], clean["k"], clean["v"], mask)
+    check_guards(tag, ins, outs)
+    got = outs["out"].view
+    if not bool(torch.isfinite(got).all()):
+        raise SanitizeError(f"[sanitize] {tag}: 'out' is not finite (a read of a masked "
+                            f"column or of a NaN band, or an element left unwritten)")
+    err, want = got.float() - want.float(), want.float()
+    rel = (err.abs().max() / want.abs().max().clamp(min=1e-30)).item()
+    rms = (err.norm() / want.norm().clamp(min=1e-30)).item()
+    if rel > DECODE_GATES[dtype] or (dtype == torch.bfloat16 and rms > DECODE_RMS_GATE):
+        raise SanitizeError(f"[sanitize] {tag}: {rel:.3e} of max, {rms:.3e} of the norm from "
+                            f"the plain version (gates {DECODE_GATES[dtype]}, bf16 norm "
+                            f"{DECODE_RMS_GATE})")
+    return {"case": tag, "rel": rel, "rms": rms}
+
+
 def phase_guarded(device="cuda", launches: Optional[dict] = None) -> dict:
     """Phase 1 over every case (B1 at B1_T x B1_B, B2 at B2_T x B2_CONTEXTS,
-    f32 and bf16). ``launches`` maps each kernel name to its launch
-    function (default: the C entry points). Returns {cases, max_rel,
-    seconds}."""
+    the decode attention at DECODE_CASES, f32 and bf16). ``launches`` maps
+    each kernel name to its launch function (default: the C entry points).
+    Returns {cases, max_rel, seconds}."""
     t0 = time.perf_counter()
-    launches = launches or {n: kernel_launch(n, device)
-                            for n in ("causal_attention_qkv", "window_attention_qkv")}
+    launches = launches or {**{n: kernel_launch(n, device)
+                               for n in ("causal_attention_qkv", "window_attention_qkv")},
+                            "decode_attention": decode_launch(device)}
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         for T in B1_T:
@@ -240,6 +347,9 @@ def phase_guarded(device="cuda", launches: Optional[dict] = None) -> dict:
                 cases.append(guarded_case("window_attention_qkv", dtype, B2_B, T, B2_HEADS,
                                           launches["window_attention_qkv"], device,
                                           context=ctx, seed=T + ctx))
+        for B, T, splits in DECODE_CASES:
+            cases.append(guarded_decode_case(dtype, B, T, splits, launches["decode_attention"],
+                                             device, seed=B * 10000 + T + splits))
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
     return {"cases": len(cases),
@@ -297,7 +407,7 @@ def checked_wrappers():
     """The models' kernel wrappers, replaced by ones that check their
     outputs for NaN under the wrapper's name (a ctypes launch is no aten
     operation); yields {wrapper name: calls checked}."""
-    calls = {"causal_attention_qkv": 0, "window_attention_qkv": 0}
+    calls = {"causal_attention_qkv": 0, "window_attention_qkv": 0, "decode_attention": 0}
 
     def checked(module, name):
         inner = getattr(module, name)
@@ -313,7 +423,8 @@ def checked_wrappers():
 
     saved = []
     try:
-        for module, name in ((flowlm, "causal_attention_qkv"), (mimi, "window_attention_qkv")):
+        for module, name in ((flowlm, "causal_attention_qkv"), (mimi, "window_attention_qkv"),
+                             (flowlm, "decode_attention")):
             inner, wrapper = checked(module, name)
             saved.append((module, name, inner))
             setattr(module, name, wrapper)

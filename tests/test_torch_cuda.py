@@ -398,6 +398,7 @@ def test_blocked_decode_on_card_matches_einsum(dev, tmp_path):
     path, fc, mc = small_model(tmp_path)
     engine = api.load_dir(path, flowlm_cfg=fc, mimi_cfg=mc, device="cuda").engine
     p = api.Params(seed=4, num_frames=5, eos_enabled=False)
+    engine.flags = dataclasses.replace(engine.flags, decode_impl="einsum")
     want = engine.generate_full("Hello world!", params=p, decode_audio=False)
     engine.flags = dataclasses.replace(engine.flags, decode_impl="blocked")
     got = engine.generate_full("Hello world!", params=p, decode_audio=False)
@@ -541,3 +542,175 @@ def test_graph_capture_error_propagates(dev):
             cache.run("k", dev, body)
         assert len(cache) == 0
     torch.cuda.synchronize()
+
+
+# -- the decode attention (ops/cuda/decode_attention) ---------------------------
+
+
+def within_decode_gates(got, want, dtype) -> bool:
+    """The decode attention's gates (tools/sanitize.DECODE_GATES): max error
+    over max |want|, and in bf16 the error's norm over want's."""
+    norm = ((got.float() - want.float()).norm() / want.float().norm()).item()
+    return rel(got, want) <= tsan.DECODE_GATES[dtype] and (
+        dtype != torch.bfloat16 or norm <= tsan.DECODE_RMS_GATE)
+
+
+def decode_cache(dev, dtype, B, Tmax, t0, seed, offline=False, kind="mixed"):
+    """A flowlm.KVCache of one layer, [1, B, Tmax, 16, 64] random K/V, at a
+    cursor where its decode ring (the columns from t0 on) has wrapped three
+    times (``offline``: not wrapped, every stream started at t0, as the
+    offline loop's cache); prefixes and decode spans random. ``kind``
+    "mixed" makes rows 0, 1, 2 a prefix-only row, a row of one valid column
+    and a row of none; "prefix_only", "one_column" and "none" make every
+    row so. Returns (q [B, 16, 64], cache)."""
+    from ptts_torch.models import flowlm
+
+    rng = np.random.default_rng(seed)
+    ring = Tmax - t0
+    cursor = t0 + 2 * ring // 3 if offline else t0 + 3 * ring + 17
+    prefix = rng.integers(max(t0 // 2, 1), t0 + 1, B)
+    start = np.full(B, t0) if offline else cursor - rng.integers(0, ring, B)
+    rows = {"prefix_only": (None, cursor + 1), "one_column": (0, cursor), "none": (0, cursor + 1)}
+    order = ["prefix_only", "one_column", "none"] if kind == "mixed" else [kind] * B
+    for b, what in enumerate(order[:B]):
+        p, s = rows[what]
+        prefix[b] = prefix[b] if p is None else p
+        start[b] = s
+    k, v, q = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev, dtype)
+               for s in ((1, B, Tmax, 16, 64), (1, B, Tmax, 16, 64), (B, 16, 64)))
+    cache = flowlm.KVCache(k=k, v=v, prefix_len=torch.tensor(prefix, dtype=torch.int32,
+                                                               device=dev),
+                           start=torch.tensor(start, dtype=torch.int32, device=dev),
+                           cursor=torch.tensor(cursor, dtype=torch.int32, device=dev), t0=t0)
+    return q, cache
+
+
+# (dtype, B, Tmax, prefix columns t0, offline): bf16-serve-short's and
+# bf16-serve-long's pools, f32-offline-long's length groups, Context.stream
+DECODE_SHAPES = [(torch.bfloat16, 256, 128, 64, False), (torch.bfloat16, 256, 544, 160, False),
+                 (torch.float32, 16, 528, 153, True), (torch.bfloat16, 1, 200, 40, False),
+                 (torch.float32, 1, 200, 40, True)]
+
+
+@pytest.mark.parametrize("dtype,B,Tmax,t0,offline", DECODE_SHAPES,
+                         ids=["bf16-256x128", "bf16-256x544", "f32-16x528", "bf16-1x200",
+                              "f32-1x200"])
+def test_decode_kernel_matches_plain_with_nan_in_masked_columns(dev, dtype, B, Tmax, t0,
+                                                                offline):
+    """The kernel at the main path's shapes against the plain version, on
+    KVCache.valid_mask past ring wraps (a prefix-only row, a row of one
+    column, a row of none among them), with NaN in every K/V column the
+    mask leaves out of a row that has a valid one: the output is finite and
+    within the gates of the plain version run on the clean cache."""
+    from ptts_torch.ops import attention
+    from ptts_torch.ops.cuda import decode_attention as da
+
+    q, cache = decode_cache(dev, dtype, B, Tmax, t0, seed=B + Tmax, offline=offline)
+    mask = cache.valid_mask()
+    want = attention.decode_attention_masked(q, cache.k[0], cache.v[0], mask)
+    skip = (~mask & mask.any(dim=1, keepdim=True))[:, :, None, None]
+    k, v = (x[0].masked_fill(skip, float("nan")) for x in (cache.k, cache.v))
+    before = da.decode_attention.launches
+    got = da.decode_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 1
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert within_decode_gates(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["prefix_only", "one_column", "none"])
+def test_decode_kernel_single_stream_rows(dev, dtype, kind):
+    """B = 1 (Context.stream; many splits of one stream) with its only row
+    prefix-only, of one valid column, or of none (every column at equal
+    scores, as the plain version's softmax over -1e30 gives)."""
+    from ptts_torch.ops import attention
+    from ptts_torch.ops.cuda import decode_attention as da
+
+    q, cache = decode_cache(dev, dtype, 1, 544, 160, seed=7, kind=kind)
+    mask = cache.valid_mask()
+    got = da.decode_attention(q, cache.k[0], cache.v[0], mask)
+    want = attention.decode_attention_masked(q, cache.k[0], cache.v[0], mask)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and within_decode_gates(got, want, dtype)
+
+
+def test_decode_kernel_refuses_what_it_cannot_take(dev):
+    from ptts_torch.ops.cuda import decode_attention as da
+
+    q, cache = decode_cache(dev, torch.bfloat16, 4, 64, 16, seed=1)
+    k, v, mask = cache.k[0], cache.v[0], cache.valid_mask()
+    with pytest.raises(ValueError):  # the cache on another layout
+        da.decode_attention(q, k.transpose(1, 2), v.transpose(1, 2), mask)
+    with pytest.raises(TypeError):   # q and cache in different dtypes
+        da.decode_attention(q.float(), k, v, mask)
+    with pytest.raises(ValueError):  # the mask on the host
+        da.decode_attention(q, k, v, mask.cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_step_replayed_equals_eager_kernel(dev, dtype, tmp_path):
+    """flowlm.decode_step on the small model's weights (2 heads), captured
+    once as a CUDA graph and replayed for 12 frames across a ring wrap, against the
+    same steps run eagerly on a copy of the cache: outputs and caches
+    bit-equal, and the kernel launched in both."""
+    import dataclasses
+
+    from ptts_torch.models import flowlm
+    from ptts_torch.ops.cuda import decode_attention as da
+    from ptts_torch.runtime.engine import TTSEngine
+
+    path, fc, mc = small_model(tmp_path)
+    w = TTSEngine(api.load_dir(path, flowlm_cfg=fc, mimi_cfg=mc, device="cuda"), dtype=dtype).fw
+    rng = np.random.default_rng(3)
+    B, Tmax, t0 = 8, 90, 80   # a 10-column ring, three splits a stream
+
+    def fresh():
+        cache = flowlm.make_cache(fc, B, Tmax, dtype, dev)
+        g = np.random.default_rng(4)
+        cache.k.copy_(torch.from_numpy(g.standard_normal(tuple(cache.k.shape)).astype(np.float32)))
+        cache.v.copy_(torch.from_numpy(g.standard_normal(tuple(cache.v.shape)).astype(np.float32)))
+        cache.prefix_len.copy_(torch.tensor([80, 33, 1, 0, 50, 80, 2, 70], dtype=torch.int32))
+        cache.start.copy_(torch.tensor([80, 80, 81, 82, 80, 84, 80, 87], dtype=torch.int32))
+        return dataclasses.replace(flowlm.seek(cache, t0, t0), cursor_host=None)
+
+    xs = [torch.from_numpy(rng.standard_normal((B, fc.d_model)).astype(np.float32)).to(dev, dtype)
+          for _ in range(12)]
+    eager, replayed = fresh(), fresh()
+    x = torch.empty_like(xs[0])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # warm-up on a throwaway cache
+        scratch = fresh()
+        for _ in range(2):
+            flowlm.decode_step(w, scratch, x.copy_(xs[0]), fc)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    launches = da.decode_attention.launches
+    with torch.cuda.graph(graph):
+        _, out = flowlm.decode_step(w, replayed, x, fc)
+    assert da.decode_attention.launches == launches + fc.num_layers
+    for step in range(12):
+        x.copy_(xs[step])
+        graph.replay()
+        _, want = flowlm.decode_step(w, eager, xs[step], fc)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), step
+    assert torch.equal(replayed.k, eager.k) and torch.equal(replayed.v, eager.v)
+    assert int(replayed.cursor) == int(eager.cursor) == t0 + 12
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Tmax,splits", tsan.DECODE_CASES)
+def test_decode_kernel_guarded_launch(dev, dtype, B, Tmax, splits):
+    """ptts_torch.tools.sanitize phase 1 for the decode attention: its C
+    entry point on views inside NaN- and sentinel-banded slabs, NaN in the
+    masked K/V columns."""
+    from ptts_torch.ops.cuda import decode_attention as da
+
+    before = da.decode_attention.launches
+    res = tsan.guarded_decode_case(dtype, B, Tmax, splits, tsan.decode_launch(dev), dev,
+                                   seed=B * 10000 + Tmax + splits)
+    assert res["rel"] <= tsan.DECODE_GATES[dtype]
+    assert dtype != torch.bfloat16 or res["rms"] <= tsan.DECODE_RMS_GATE
+    assert da.decode_attention.launches == before   # a raw launch is not counted

@@ -49,6 +49,7 @@ from ptts_torch import api as tapi  # noqa: E402
 from ptts_torch import bench, synth  # noqa: E402
 from ptts_torch import cli as tcli  # noqa: E402
 from ptts_torch.models import flowlm as tfl  # noqa: E402
+from ptts_torch.ops import attention as tattn  # noqa: E402
 from ptts_torch.ops.cuda import fused_attention as fa  # noqa: E402
 from ptts_torch.runtime.engine import TTSEngine  # noqa: E402
 from ptts_torch.tools import bench_batch_sweep, bench_batcher_sweep  # noqa: E402
@@ -253,11 +254,53 @@ def test_guarded_slabs_catch_stand_in_kernels(name, context, dtype, launch, caug
             tsan.guarded_case(*args, context=context)
 
 
+def plain_decode_launch(views, B, Tmax, H, splits):
+    """A correct stand-in for the decode attention's C entry point: the
+    plain version on the cache with the masked columns zeroed (but in a row
+    with no valid column, which takes them all), written into the output."""
+    mask = views["mask"]
+    skip = (~mask & mask.any(dim=1, keepdim=True))[:, :, None, None]
+    k, v = (views[key].masked_fill(skip, 0.0) for key in ("k", "v"))
+    views["out"].copy_(tattn.decode_attention_masked(views["q"], k, v, mask))
+
+
+def decode_reads_masked(views, B, Tmax, H, splits):
+    views["out"].copy_(tattn.decode_attention_masked(views["q"], views["k"], views["v"],
+                                                     views["mask"]))
+
+
+def decode_writes_past_part(views, B, Tmax, H, splits):
+    plain_decode_launch(views, B, Tmax, H, splits)
+    part = views["part"]
+    torch.as_strided(part, (1,), (1,), part.storage_offset() + part.numel())[0] = 0.0
+
+
+def decode_writes_mask(views, B, Tmax, H, splits):
+    plain_decode_launch(views, B, Tmax, H, splits)
+    views["mask"][0, 0] = ~views["mask"][0, 0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("launch,caught", [
+    (plain_decode_launch, None),
+    (decode_reads_masked, "'out' is not finite"),
+    (decode_writes_past_part, "a write landed outside 'part'"),
+    (decode_writes_mask, "a write landed in input 'mask'")])
+def test_guarded_decode_slabs_catch_stand_in_kernels(dtype, launch, caught):
+    args = (dtype, 4, 37, 2, launch, "cpu")
+    if caught is None:
+        assert tsan.guarded_decode_case(*args)["rel"] == 0.0
+    else:
+        with pytest.raises(tsan.SanitizeError, match=caught):
+            tsan.guarded_decode_case(*args)
+
+
 def test_guarded_phase_runs_every_case_with_a_correct_stand_in():
-    res = tsan.phase_guarded("cpu", dict.fromkeys(("causal_attention_qkv",
-                                                   "window_attention_qkv"), plain_launch))
-    n = 2 * (len(tsan.B1_T) * len(tsan.B1_B) + len(tsan.B2_T) * len(tsan.B2_CONTEXTS))
-    assert res["cases"] == n == 44 and res["max_rel"] == {"f32": 0.0, "bf16": 0.0}
+    launches = dict.fromkeys(("causal_attention_qkv", "window_attention_qkv"), plain_launch)
+    res = tsan.phase_guarded("cpu", {**launches, "decode_attention": plain_decode_launch})
+    n = 2 * (len(tsan.B1_T) * len(tsan.B1_B) + len(tsan.B2_T) * len(tsan.B2_CONTEXTS)
+             + len(tsan.DECODE_CASES))
+    assert res["cases"] == n == 56 and res["max_rel"] == {"f32": 0.0, "bf16": 0.0}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])

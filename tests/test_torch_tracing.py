@@ -25,6 +25,7 @@ torch = pytest.importorskip("torch")
 
 from helpers import TINY_FLOWLM, TINY_MIMI, write_model_dir  # noqa: E402
 from ptts_torch import api as tapi  # noqa: E402
+from ptts_torch.ops.cuda import decode_attention  # noqa: E402
 from ptts_torch.ops.cuda import fused_attention as fa  # noqa: E402
 from ptts_torch.ops.cuda import markers  # noqa: E402
 from ptts_torch.runtime import graphs, streaming  # noqa: E402
@@ -159,6 +160,28 @@ def test_counts_held_in_a_capture_count_at_each_replay(ring, monkeypatch):
     assert w.launches == n0 + 3 and w.shapes[("bf16", 2, 1024)] == s0[("bf16", 2, 1024)] + 3
     assert timing.counters() == {"in.body": 6}
     assert fa.causal_attention_qkv.launches == before[0][1]
+
+
+def test_decode_attention_launches_in_a_capture_count_at_each_replay(monkeypatch):
+    """The decode attention's wrapper is counted like B1's and B2's: a
+    launch in a captured body counts once per replay, by its shape."""
+    d = decode_attention.decode_attention
+    assert d in graphs._COUNTED
+    for fn in graphs._COUNTED:
+        monkeypatch.setattr(fn, "launches", fn.launches)
+        monkeypatch.setattr(fn, "shapes", collections.Counter(fn.shapes))
+    n0, shape = d.launches, ("bf16", 256, 544)
+    s0 = d.shapes[shape]
+    entry = graphs._Entry()
+    before = graphs._launch_counts()
+    d.launches += 6                                   # one per layer in the body
+    d.shapes[shape] += 6
+    entry.launches = graphs._held_launches(before)
+    assert d.launches == n0 and d.shapes[shape] == s0
+    entry.graph = type("G", (), {"replay": lambda self: None})()
+    for _ in range(4):
+        graphs._replay(entry)
+    assert d.launches == n0 + 24 and d.shapes[shape] == s0 + 24
 
 
 # -- the program's spans ---------------------------------------------------------
