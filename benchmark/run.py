@@ -56,6 +56,13 @@ def cell_metrics(bench: dict, group: str, workload: str) -> list:
     return [m for m in bench[group] if workload in m.get("workloads", [workload])]
 
 
+def e2e_value(e2e: dict, name: str) -> float:
+    """An end-to-end metric's value from the drive's readings: its own, or
+    for a metric split off by kind of cell (``<base>.<kind>``, the same
+    quantity under a bound of its own) its base's."""
+    return e2e[name] if name in e2e else e2e[name.rsplit(".", 1)[0]]
+
+
 def forbidden_modules() -> list:
     return sorted({name.split(".")[0] for name in list(sys.modules)} & set(FORBIDDEN))
 
@@ -101,17 +108,22 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, device: s
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     if on_card:
-        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.init()           # the allocators of every card, before their peaks reset
+        for i in range(cell["chips"]):
+            torch.cuda.reset_peak_memory_stats(i)
     r = kind.drive(types.SimpleNamespace(cfg=cfg, mix=mix, seed=seed, seconds=seconds,
                                          trace=trace, device=dev, controls=tuple(controls)))
     correct, rows = check.decide(r["numbers"]["program"], lim)
     out = {"correct": correct, "attempted": r["attempted"], "failed": r["failed"]}
     info = dict({"workload": workload, "seed": seed, "seconds": seconds, "trace": int(trace)},
                 **r["info"])
-    obs = dict(r["obs"], cfg=cfg, mix=mix, dtype=cfg["dtype"])
+    obs = dict(r["obs"], cfg=cfg, mix=mix, dtype=cfg["dtype"], chips=cell["chips"])
+    info["memory_peak_bytes_per_card"] = [int(p) for p in r["peaks"]]
     if trace:
         sub = obs.get("sub")
         obs["sub_summary"] = sub.summary() if sub is not None else None
+        if obs["sub_summary"]:
+            info["busy_s_per_card"] = obs["sub_summary"]["busy_by_card"]
         metrics = {}
         for m in cell_metrics(bench, "per_layer", workload):
             v = read_metric(m["name"], obs)
@@ -121,12 +133,12 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, device: s
                                      if m["name"] not in metrics]
     else:
         e2e = dict(r["e2e"], setup_s=r["t_start"] - t_process)
-        metrics = {m["name"]: {"value": e2e[m["name"]], "unit": m["unit"]}
+        metrics = {m["name"]: {"value": e2e_value(e2e, m["name"]), "unit": m["unit"]}
                    for m in cell_metrics(bench, "end_to_end", workload)}
     devinfo = {"platform": "gpu" if on_card else dev.type,
                "kind": torch.cuda.get_device_name(0) if on_card else "cpu",
-               "count": torch.cuda.device_count() if on_card and cell["chips"] > 1 else 1,
-               "memory_peak_bytes": int(r["peak"])}
+               "count": len(r["peaks"]) if on_card else 1,
+               "memory_peak_bytes": int(max(r["peaks"]))}
     if trace:
         s = obs.get("sub_summary") or {"busy_s": 0.0, "window_s": 0.0}
         devinfo.update(busy_s=s["busy_s"], window_s=s["window_s"])

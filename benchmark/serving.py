@@ -5,6 +5,12 @@
 ``step()`` that collected it returns. ``drive`` is a serving kind's whole
 run: the system, the window, its metrics and the numbers ``correct`` reads.
 
+A mix whose batcher gives ``cards`` serves from one pool split over that
+many devices (parallel/mesh.make_mesh over cuda:0 .. cards - 1; on the CPU
+the device repeated), one shard of slots / cards rows on each, every
+shard's step launched by this one thread. Without it the pool is one shard
+on the engine's device.
+
 Requests carry token ids, a voice of the bank and their frame noise (the
 host-noise path of a caller with a fixed seed), all made here from the
 seed in the served dtype; EOS is off, so each request stops at its frame
@@ -86,7 +92,10 @@ class ServeRun:
             system.engine, slots=bc["slots"], max_len=bc["max_len"],
             admit_chunk=bc["admit_chunk"], prefix_budget=bc["prefix_budget"], max_num_steps=1,
             pipeline=bc["pipeline"], frames_per_step=bc["frames_per_step"],
-            collect_pcm=True, noise_budget=bc["max_len"] - bc["prefix_budget"])
+            collect_pcm=True, noise_budget=bc["max_len"] - bc["prefix_budget"],
+            mesh=pool_mesh(bc.get("cards"), system.device))
+        # the devices the pool's shards live on, in shard order
+        self.devices = list(dict.fromkeys(sh.device for sh in self.b.shards))
         self.vidx = [self.b.register_voice(f"voice{i}", system.voices[i].float().cpu().numpy())
                      for i in range(mix["voices"])]
         if min(self.vidx) < 0:
@@ -180,7 +189,8 @@ class ServeRun:
         t_start = time.perf_counter()
         self.t_start, self.t_end = t_start, t_start + self.seconds
         feeder.start(t_start)
-        sub = SubWindow() if self.trace else None
+        cards = [d.index for d in self.devices] if self.devices[0].type == "cuda" else None
+        sub = SubWindow(cards) if self.trace else None
         sub_at = t_start + self.mix["trace"]["start_frac"] * self.seconds
         sub_steps = 0
         host_cut = None            # host metrics of a traced run stop where the profiler starts
@@ -265,6 +275,17 @@ class ServeRun:
         return out
 
 
+def pool_mesh(cards: Optional[int], device: torch.device):
+    """The mesh of a pool over ``cards`` devices: cuda:0 .. cards - 1 on the
+    card, ``device`` repeated elsewhere; None without ``cards``."""
+    if not cards:
+        return None
+    from ptts_torch.parallel.mesh import make_mesh
+    devices = ([torch.device("cuda", i) for i in range(cards)] if device.type == "cuda"
+               else [device] * cards)
+    return make_mesh(devices)
+
+
 def _b1_launches() -> int:
     """B1 launches so far (the kernel wrapper's counter)."""
     from ptts_torch.ops.cuda import fused_attention as fa
@@ -279,6 +300,15 @@ def p95(values) -> Optional[float]:
     return float(np.percentile(np.asarray(v, np.float64), 95))
 
 
+def quantiles_ms(seconds) -> List[float]:
+    """[p50, p90, p95, p99, max] of durations in seconds, in ms; for the run's
+    info line, where a tail that moves shows whether its shape did."""
+    v = np.asarray(list(seconds), np.float64)
+    if not v.size:
+        return []
+    return [float(x) * 1e3 for x in np.percentile(v, [50, 90, 95, 99, 100])]
+
+
 def drive(cell, feeder_cls) -> dict:
     """A serving kind's run (see traffic/__init__.py): the batcher over the
     system built from the seed, fed by ``feeder_cls``, the frame tap on the
@@ -289,8 +319,9 @@ def drive(cell, feeder_cls) -> dict:
     run = ServeRun(sysm, mix, cell.seed, cell.seconds, cell.trace)
     feeder = feeder_cls(run, mix, cfg, cell.seed, cell.seconds)
     bc = mix["batcher"]
-    tap = S.FrameTap(bc["slots"] + 1, cfg["flowlm"]["latent_dim"], feeder.watch_slots,
-                     bc["max_len"] - bc["prefix_budget"], dev)
+    tap = S.FrameTap(cfg["flowlm"]["latent_dim"], feeder.watch_slots,
+                     bc["max_len"] - bc["prefix_budget"])
+    tap.bind(run.b.shards)
     run.tap = tap
     tap.install()
     try:
@@ -298,7 +329,7 @@ def drive(cell, feeder_cls) -> dict:
     finally:
         tap.uninstall()
     t_start, t_end = run.t_start, run.t_end
-    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    peaks = [torch.cuda.max_memory_allocated(d) for d in run.devices] if on_card else [0]
     window = [r for r in feeder.window_rids if run.specs[r].due is not None]
     chunks, gaps, _ = run.landed_in(t_start, t_end)
     e2e = {"audio_s_per_s": chunks * FRAME_S / cell.seconds,
@@ -320,9 +351,14 @@ def drive(cell, feeder_cls) -> dict:
                 sub_b1_launches=si.get("b1_launches"), sub_admit_groups=si.get("admit_groups"),
                 lateness_p99_ms=sorted(lat)[int(0.99 * (len(lat) - 1))] * 1e3 if lat else 0.0,
                 captures_in_window=res["captured_in_window"], drained_s=run.t_drained - t_end,
-                tap_bytes=tap.nbytes)
-    records = tap.find([{"key": r, "frames": run.specs[r].frames}
-                        for r in feeder.sample_rids()])
+                tap_bytes=tap.nbytes, gap_ms_q=quantiles_ms(gaps),
+                step_ms_q=quantiles_ms(np.diff([t for t, _ in run.backlog
+                                                if t_start <= t < t_end])),
+                phase_ms_per_step={k: v * 1e3 / max(res["host_steps"], 1)
+                                   for k, v in res["host_phase_s"].items()})
+    sample = feeder.sample_rids()
+    records = tap.find([{"key": r, "frames": run.specs[r].frames} for r in sample])
+    info["sample_shards"] = sorted({rec["shard"] for rec in records.values()})
     failed = sum(1 for r in window if run.frames_out.get(r) != run.specs[r].frames)
     run.b = None
     sysm.engine = None
@@ -330,21 +366,23 @@ def drive(cell, feeder_cls) -> dict:
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    return dict(t_start=t_start, e2e=e2e, obs=obs, info=info, peak=peak,
+    return dict(t_start=t_start, e2e=e2e, obs=obs, info=info, peaks=peaks,
                 attempted=len(window), failed=failed,
-                numbers=readings(run, feeder, records, sysm, cell.controls))
+                numbers=readings(run, feeder, sample, records, sysm, cell.controls))
 
 
-def readings(run, feeder, records: Dict[int, dict], system, controls=()) -> dict:
-    """The serving cells' numbers (check.py). ``records``: rid -> the frame
-    tap's records of the sampled requests (FrameTap.find)."""
+def readings(run, feeder, sample, records: Dict[int, dict], system, controls=()) -> dict:
+    """The serving cells' numbers (check.py). ``sample``: the rids the
+    check judges; ``records``: rid -> the frame tap's records of them
+    (FrameTap.find). A draw the feeder could not make (``unsampled``)
+    counts as missing."""
     cfg = system.cfg
     fs = check.frame_samples(cfg)
     refs, out = check.references(system, cfg, controls)
-    counts = {"missing": 0, "frames_bad": 0, "noise_bad": 0}
+    counts = {"missing": getattr(feeder, "unsampled", 0), "frames_bad": 0, "noise_bad": 0}
     window = [r for r in feeder.window_rids if run.specs[r].due is not None]
     counts["frames_bad"] = sum(1 for r in window if run.frames_out.get(r) != run.specs[r].frames)
-    for rid in feeder.sample_rids():
+    for rid in sample:
         spec, rec = run.specs[rid], records.get(rid)
         if rec is None or rid not in run.pcm:
             counts["missing"] += 1

@@ -8,9 +8,10 @@ the metric."""
 from __future__ import annotations
 
 import bisect
+from collections import defaultdict
 from typing import List, Optional, Tuple
 
-from .trace import busy_union
+from .trace import busy_union, card_of
 
 
 def tracer_records() -> Optional[List[tuple]]:
@@ -48,26 +49,34 @@ def window_records(obs: dict) -> Optional[List[tuple]]:
 
 def marker_ms_per_frame(obs: dict, start: str, stop: str) -> Optional[float]:
     """The busy union of the profiled stretch's device events from each
-    ``start`` marker kernel to the next ``stop`` marker (the events that
-    start in between, cut at ``stop``), in ms per pool frame; None where no
-    such pair is in the stretch."""
+    ``start`` marker kernel to the next ``stop`` marker on the same card
+    (the events that start in between, cut at ``stop``), in ms per pool
+    frame: over several cards, the mean of the cards that ran such a pair,
+    as ``busy_s`` is. None where no such pair is in the stretch."""
     sub, info = obs.get("sub"), obs.get("sub_info") or {}
     if sub is None or sub.events is None or not info.get("frames"):
         return None
-    busy, pairs, open_at, iv = 0.0, 0, None, []
-    for e in sorted(sub.device_events(), key=lambda e: float(e["ts"])):
-        name, ts = str(e["name"]), float(e["ts"])
-        if name.startswith(start):
-            open_at, iv = ts, []
-        elif name.startswith(stop) and open_at is not None:
-            busy += busy_union([(a, min(z, ts)) for a, z in iv if a < ts])
-            pairs, open_at = pairs + 1, None
-            continue
-        if open_at is not None:
-            iv.append((ts, ts + float(e["dur"])))
-    if not pairs:
+    by_card = defaultdict(list)
+    for e in sub.device_events():
+        by_card[card_of(e)].append(e)
+    busy = []
+    for events in by_card.values():
+        b, pairs, open_at, iv = 0.0, 0, None, []
+        for e in sorted(events, key=lambda e: float(e["ts"])):
+            name, ts = str(e["name"]), float(e["ts"])
+            if name.startswith(start):
+                open_at, iv = ts, []
+            elif name.startswith(stop) and open_at is not None:
+                b += busy_union([(a, min(z, ts)) for a, z in iv if a < ts])
+                pairs, open_at = pairs + 1, None
+                continue
+            if open_at is not None:
+                iv.append((ts, ts + float(e["dur"])))
+        if pairs:
+            busy.append(b)
+    if not busy:
         return None
-    return busy * 1e-3 / info["frames"]
+    return sum(busy) / len(busy) * 1e-3 / info["frames"]
 
 
 def idle_inside(sub, range_name: str) -> Optional[float]:

@@ -50,9 +50,9 @@ def sweep(workload: str, seed: int, seconds: float, rates, device="cuda", cfg=No
         run = ServeRun(sysm, m, seed, seconds, False)
         feeder = open_loop_serve.Feeder(run, m, cfg, seed, seconds)
         # the cell's frame tap, so that each rate runs the cell's own step
-        run.tap = tap = S.FrameTap(bc["slots"] + 1, cfg["flowlm"]["latent_dim"],
-                                   feeder.watch_slots, bc["max_len"] - bc["prefix_budget"],
-                                   device)
+        run.tap = tap = S.FrameTap(cfg["flowlm"]["latent_dim"], feeder.watch_slots,
+                                   bc["max_len"] - bc["prefix_budget"])
+        tap.bind(run.b.shards)
         tap.install()
         try:
             run.run(feeder)

@@ -86,20 +86,40 @@ class FrameTap:
     the row is that request's until its next start, and each of its frames
     is written to the request's slot at its frame index. Every other row
     writes to a slot that is never read. The work per frame is a few small
-    kernels whatever the pool's rate, and the memory a few megabytes."""
+    kernels whatever the pool's rate, and the memory a few megabytes.
 
-    def __init__(self, rows: int, latent: int, watch: int, frames: int, device):
+    The pool's shards (``bind``) each step their own rows, on their own
+    device: the row map, the watched keys and the records are per shard,
+    indexed by the shard's local rows. A frame call finds its shard by the
+    KV cache it is handed, and records there; ``find`` says which shard
+    served each request."""
+
+    def __init__(self, latent: int, watch: int, frames: int):
         self.latent, self.watch, self.frames = latent, watch, frames
-        self.keys = torch.full((watch, latent), float("nan"), device=device)
-        self.row_slot = torch.full((rows,), watch, dtype=torch.long, device=device)
-        self.buf = torch.zeros(watch + 1, frames, latent + 4, device=device)
-        self.buf[:, :, latent + 1] = -1.0
+        self.shard_of: Dict[int, int] = {}                    # a shard's cache -> its index
+        self.keys: List[torch.Tensor] = []                    # per shard [watch, latent]
+        self.buf: List[torch.Tensor] = []                     # per shard records
+        self.row_slot: List[torch.Tensor] = []                # per shard [rows]
         self.slot_of: Dict[object, int] = {}
         self._orig = None
 
+    def bind(self, shards) -> None:
+        """Keys, records and a row map for each shard (with ``cache``,
+        ``rows`` and ``device``), in shard order. Call before any frame
+        runs."""
+        W, L = self.watch, self.latent
+        for sh in shards:
+            dev = sh.device
+            self.shard_of[sh.cache.k.data_ptr()] = len(self.buf)
+            self.keys.append(torch.full((W, L), float("nan"), device=dev))
+            buf = torch.zeros(W + 1, self.frames, L + 4, device=dev)
+            buf[:, :, L + 1] = -1.0
+            self.buf.append(buf)
+            self.row_slot.append(torch.full((sh.rows,), W, dtype=torch.long, device=dev))
+
     @property
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in (self.keys, self.row_slot, self.buf))
+        return sum(t.numel() * t.element_size() for t in self.keys + self.buf + self.row_slot)
 
     def watch_request(self, key, noise: np.ndarray) -> bool:
         """Watch the request ``key`` whose frame noise (in the served
@@ -110,25 +130,30 @@ class FrameTap:
         if len(self.slot_of) >= self.watch:
             return False
         i = len(self.slot_of)
-        self.keys[i].copy_(torch.as_tensor(np.asarray(noise[0], np.float32)))
+        first = torch.as_tensor(np.asarray(noise[0], np.float32))
+        for keys in self.keys:
+            keys[i].copy_(first)
         self.slot_of[key] = i
         return True
 
-    def record(self, scaled, eos, frame_idx, done, noise) -> None:
-        """The per-frame work: called inside the frame step, graph-safe."""
+    def record(self, cache, scaled, eos, frame_idx, done, noise) -> None:
+        """The per-frame work of the shard whose KV cache is ``cache``:
+        called inside the frame step, graph-safe."""
+        s = self.shard_of[cache.k.data_ptr()]
+        keys, buf, row_slot = self.keys[s], self.buf[s], self.row_slot[s]
         B, L, W = scaled.shape[0], self.latent, self.watch
         fi = (frame_idx.expand(B) if torch.is_tensor(frame_idx) else torch.full(
             (B,), int(frame_idx), device=scaled.device)).long()
         nz = noise.float()
-        match = (nz[:, None, :] == self.keys[None]).all(-1)             # [B, W]
+        match = (nz[:, None, :] == keys[None]).all(-1)                  # [B, W]
         hit = torch.where(match.any(1), match.float().argmax(1), W)
         start = (fi == 0) & ~done
-        self.row_slot.copy_(torch.where(start, hit, self.row_slot))
+        row_slot.copy_(torch.where(start, hit, row_slot))
         keep = ~done & (fi >= 0) & (fi < self.frames)
-        slot = torch.where(keep, self.row_slot, W)
+        slot = torch.where(keep, row_slot, W)
         rec = torch.cat([scaled.float(), eos.float().reshape(B, 1), fi.float().reshape(B, 1),
                          nz[:, :2]], dim=1)
-        self.buf.index_put_((slot, fi.clamp(0, self.frames - 1)), rec)
+        buf.index_put_((slot, fi.clamp(0, self.frames - 1)), rec)
 
     def install(self) -> None:
         from ptts_torch.runtime import streaming
@@ -137,7 +162,7 @@ class FrameTap:
 
         def flow_frame_step(w, cache, x, noise, time_embs, frame_idx, eos_step, done, *a, **k):
             out = orig(w, cache, x, noise, time_embs, frame_idx, eos_step, done, *a, **k)
-            tap.record(out[2], out[3], frame_idx, done, noise)
+            tap.record(cache, out[2], out[3], frame_idx, done, noise)
             return out
 
         streaming.flow_frame_step = flow_frame_step
@@ -150,18 +175,22 @@ class FrameTap:
 
     def find(self, requests: List[dict]) -> Dict[object, dict]:
         """For each watched request {"key", "frames"}: its frames' records,
-        {"scaled" [F, latent], "eos" [F], "noise2" [F, 2]}; missing where a
-        frame 0..F-1 was not recorded."""
+        {"scaled" [F, latent], "eos" [F], "noise2" [F, 2]}, with the index
+        of the shard that served it and that shard's device ("shard",
+        "device"); missing where a frame 0..F-1 was not recorded."""
         L = self.latent
         out = {}
         for r in requests:
             i, F = self.slot_of.get(r["key"]), r["frames"]
             if i is None or F > self.frames:
                 continue
-            seg = self.buf[i, :F].cpu()
-            if not torch.equal(seg[:, L + 1], torch.arange(F, dtype=torch.float32)):
-                continue
-            out[r["key"]] = {"scaled": seg[:, :L], "eos": seg[:, L], "noise2": seg[:, L + 2:]}
+            for s, buf in enumerate(self.buf):
+                seg = buf[i, :F].cpu()
+                if torch.equal(seg[:, L + 1], torch.arange(F, dtype=torch.float32)):
+                    out[r["key"]] = {"scaled": seg[:, :L], "eos": seg[:, L],
+                                     "noise2": seg[:, L + 2:], "shard": s,
+                                     "device": str(buf.device)}
+                    break
         return out
 
 

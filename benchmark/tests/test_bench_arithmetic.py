@@ -4,6 +4,7 @@ union, the roofline and FLOP counts."""
 
 import collections
 import math
+import types
 
 import numpy as np
 import pytest
@@ -87,10 +88,18 @@ def test_b1_bound_counts_every_layer():
     assert roofline.b1_bound_s("f32", f, [3, 5]) == pytest.approx(3 * one)
 
 
+def shard(rows, device="cpu", latent=4):
+    """What FrameTap.bind reads of a pool shard: its KV cache, rows, device."""
+    cache = types.SimpleNamespace(k=torch.zeros(1, rows, 2, latent))
+    return types.SimpleNamespace(cache=cache, rows=rows, device=torch.device(device))
+
+
 def test_frame_tap_finds_a_request_whose_first_noise_another_shares():
     from benchmark.system import FrameTap
     L, rows = 4, 3
-    tap = FrameTap(rows, L, 2, 8, "cpu")
+    tap = FrameTap(L, 2, 8)
+    sh = shard(rows)
+    tap.bind([sh])
     # a and b share their first two noise values; c is not watched
     noise_a = np.array([[0.5, 0.25, 1, 0], [1.0, 2.0, 0, 0], [3.0, 4.0, 0, 0]], np.float32)
     noise_b = np.array([[0.5, 0.25, 2, 0], [7.0, 8.0, 0, 0]], np.float32)
@@ -111,10 +120,35 @@ def test_frame_tap_finds_a_request_whose_first_noise_another_shares():
             fi[row], done[row] = f, False
             noise[row] = torch.from_numpy(noises[name][f])
             scaled[row] = {"a": 20.0, "b": 10.0, "c": 30.0}[name] + f
-        tap.record(scaled, torch.zeros(rows), fi, done, noise)
+        tap.record(sh.cache, scaled, torch.zeros(rows), fi, done, noise)
     got = tap.find([{"key": "a", "frames": 3}, {"key": "b", "frames": 2},
                     {"key": "b", "frames": 3}])
     assert got["a"]["scaled"][:, 0].tolist() == [20.0, 21.0, 22.0]
     assert got["b"]["scaled"][:, 0].tolist() == [10.0, 11.0]
     assert torch.equal(got["a"]["noise2"], torch.from_numpy(noise_a[:, :2]))
     assert tap.find([{"key": "b", "frames": 3}]) == {}     # frame 2 of b never ran
+
+
+def test_frame_tap_keeps_a_row_map_per_shard_of_one_device():
+    """Two shards on one device number their rows alike: row 0 of one
+    serves a watched request while row 0 of the other serves another; each
+    shard's frames go to its own request."""
+    from benchmark.system import FrameTap
+    L = 4
+    tap = FrameTap(L, 2, 8)
+    a, b = shard(2), shard(2)
+    tap.bind([a, b])
+    assert len(tap.buf) == 2 and len(tap.row_slot) == 2
+    noise_a = np.array([[1.0, 0, 0, 0], [2.0, 0, 0, 0]], np.float32)
+    noise_c = np.array([[3.0, 0, 0, 0], [4.0, 0, 0, 0], [5.0, 0, 0, 0]], np.float32)
+    assert tap.watch_request("a", noise_a)
+    for f in range(3):
+        for sh, noise, base in ((a, noise_a, 10.0), (b, noise_c, 30.0)):
+            live = f < noise.shape[0]
+            row = torch.from_numpy(noise[min(f, noise.shape[0] - 1)])
+            tap.record(sh.cache, torch.full((2, L), base + f), torch.zeros(2),
+                       torch.tensor([f, 0]), torch.tensor([not live, True]),
+                       torch.stack([row, torch.zeros(L)]))
+    got = tap.find([{"key": "a", "frames": 2}])
+    assert got["a"]["scaled"][:, 0].tolist() == [10.0, 11.0]
+    assert got["a"]["shard"] == 0 and got["a"]["device"] == "cpu"

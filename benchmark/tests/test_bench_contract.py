@@ -35,10 +35,28 @@ def test_configs(c):
 def test_workloads(w):
     assert set(w) == {"name", "config", "traffic", "chips", "why"}
     assert NAME.match(w["name"]) and NAME.match(w["traffic"]) and LINE.match(w["why"])
-    assert w["chips"] == 1 and w["config"] in {c["name"] for c in B["configs"]}
+    assert w["chips"] in (1, 4) and w["config"] in {c["name"] for c in B["configs"]}
     mix = json.load(open(os.path.join(BENCH, "traffic", w["traffic"] + ".json")))
     assert os.path.isfile(os.path.join(BENCH, "traffic", mix["kind"] + ".py"))
     assert os.path.isfile(os.path.join(BENCH, "limits", w["name"] + ".json"))
+
+
+def four_chip_cells_allowed(workloads) -> bool:
+    """At most a quarter of the cells, rounded down, ask for four chips;
+    one always may."""
+    four = sum(1 for w in workloads if w["chips"] == 4)
+    return four <= max(1, len(workloads) // 4)
+
+
+@pytest.mark.parametrize("chips,ok", [([4], True), ([1, 4], True), ([1, 1, 4, 4], False),
+                                      ([1, 1, 1, 1, 1, 1, 1, 4, 4], True),
+                                      ([1, 1, 1, 1, 1, 1, 4, 4, 4], False)])
+def test_four_chip_rule(chips, ok):
+    assert four_chip_cells_allowed([{"chips": c} for c in chips]) == ok
+
+
+def test_four_chip_cells_within_the_rule():
+    assert four_chip_cells_allowed(B["workloads"])
 
 
 @pytest.mark.parametrize("m", B["end_to_end"] + B["per_layer"], ids=lambda m: m["name"])

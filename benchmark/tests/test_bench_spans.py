@@ -49,6 +49,77 @@ def host(name, ts, dur):
     return {"ph": "X", "cat": "user_annotation", "name": name, "ts": ts, "dur": dur}
 
 
+def on_card(event, card):
+    return dict(event, args={"device": card, "stream": 7})
+
+
+# one card's stretch of 1 ms: kernels a, b, c; the host launching in the
+# first gap, nothing of its own in the second
+CARD0 = [kernel("a", 0, 100), kernel("b", 300, 100), kernel("c", 450, 50),
+         host("bench.step", 0, 600),
+         {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 100, "dur": 200}]
+
+
+@pytest.mark.parametrize("cards", [None, [0]], ids=["cards_from_events", "card_given"])
+@pytest.mark.parametrize("named", [False, True], ids=["no_device_arg", "device_0"])
+def test_one_card_summary_is_the_union_of_its_events(cards, named):
+    """On one card the summary is what it was before cards were told
+    apart: the busy union of every device event, the kernel sums, the idle
+    gaps by the host's doing."""
+    events = [on_card(e, 0) if named and e["cat"] == "kernel" else e for e in CARD0]
+    sub = SubWindow(cards)
+    sub.t0, sub.t1, sub.events = 0.0, 1000e-6, events
+    s = sub.summary()
+    assert s["busy_s"] == pytest.approx(250e-6)
+    assert s["busy_by_card"] == [[0, pytest.approx(250e-6)]]
+    assert s["device_ops"] == [["a", pytest.approx(1e-4)], ["b", pytest.approx(1e-4)],
+                               ["c", pytest.approx(5e-5)]]
+    assert s["idle_gaps"] == [["bench.step:cudaLaunchKernel", pytest.approx(200e-6)],
+                              ["bench.step:no host op", pytest.approx(50e-6)]]
+    obs = {"sub_summary": s}
+    assert metric("device.idle_pct")(obs) == pytest.approx(75.0)
+
+
+def test_cards_are_summarized_apart_over_one_stretch():
+    """Two cards: each card's own union, their mean as busy_s, kernel time
+    summed over both, each idle gap named by its card; a card given that
+    ran nothing reads idle throughout."""
+    events = [on_card(e, 0) if e["cat"] == "kernel" else e for e in CARD0]
+    events.append(on_card(kernel("a", 0, 500), 1))
+    sub = SubWindow([0, 1])
+    sub.t0, sub.t1, sub.events = 0.0, 1000e-6, events
+    s = sub.summary()
+    assert s["busy_by_card"] == [[0, pytest.approx(250e-6)], [1, pytest.approx(500e-6)]]
+    assert s["busy_s"] == pytest.approx(375e-6)
+    assert s["device_ops"] == [["a", pytest.approx(6e-4)], ["b", pytest.approx(1e-4)],
+                               ["c", pytest.approx(5e-5)]]
+    assert s["idle_gaps"] == [["cuda:0 bench.step:cudaLaunchKernel", pytest.approx(200e-6)],
+                              ["cuda:0 bench.step:no host op", pytest.approx(50e-6)]]
+    obs = {"sub_summary": s}
+    assert metric("device.idle_pct")(obs) == pytest.approx(62.5)
+    sub.cards = [0, 1, 2]
+    s = sub.summary()
+    assert s["busy_s"] == pytest.approx(750e-6 / 3)
+    assert s["busy_by_card"][2] == [2, 0.0]
+
+
+def test_dispatch_per_step_reads_the_batchers_dispatch_phase():
+    read = metric("batcher.dispatch_ms_per_step")
+    obs = {"host_phase_s": {"admit": 0.5, "dispatch": 0.12, "collect": 2.0}, "host_steps": 40}
+    assert read(obs) == pytest.approx(3.0)
+    assert read({"host_phase_s": {}, "host_steps": 40}) is None
+    assert read({"host_phase_s": {"dispatch": 0.1}, "host_steps": 0}) is None
+
+
+def test_model_mfu_counts_every_chip_of_the_cell():
+    """The model's share of the peak is over every chip the cell asks for
+    (one where the observations name none)."""
+    obs = {"delivered_flops": 2e12, "flops_window_s": 1.0, "dtype": "bf16"}
+    one = metric("model.mfu_pct")(obs)
+    assert metric("model.mfu_pct")(dict(obs, chips=1)) == one
+    assert metric("model.mfu_pct")(dict(obs, chips=4)) == pytest.approx(one / 4)
+
+
 # a serving window: the profiler starts at 100.0; the last record before it
 # ends at 99.5, and the host window is the 10 s before that
 SERVE = [
@@ -132,6 +203,23 @@ def test_flowlm_and_mimi_device_time_per_frame():
     # FlowLM: marker 2 + 3 x 8 per step; Mimi: marker 2 + 2 x 8 (us), per frame in ms
     assert metric(NEW[2])(obs) == pytest.approx(2 * (2 + 24) / 2 * 1e-3)
     assert metric(NEW[3])(obs) == pytest.approx(2 * (2 + 16) / 2 * 1e-3)
+
+
+def test_markers_pair_on_each_card():
+    """Four cards replay their steps at nearly the same time, so their
+    marker kernels interleave in the trace: each card's markers are paired
+    with its own, and the cards' times averaged, as busy_s is."""
+    events = []
+    for c in range(4):
+        k = 3 + c                                   # card c runs 3 + c FlowLM kernels
+        events += [on_card(e, c) for e in step_trace(1000 + c, k, 2) + step_trace(2000 + c, k, 2)]
+    obs = {"sub": sub_at(0.0, events=events), "sub_info": {"frames": 2}}
+    flow = [2 * (2 + 8 * (3 + c)) / 2 * 1e-3 for c in range(4)]
+    assert metric(NEW[2])(obs) == pytest.approx(sum(flow) / 4)
+    assert metric(NEW[3])(obs) == pytest.approx(2 * (2 + 16) / 2 * 1e-3)
+    one = [e for e in events if e["args"]["device"] == 1]
+    assert metric(NEW[2])({"sub": sub_at(0.0, events=one),
+                           "sub_info": {"frames": 2}}) == pytest.approx(flow[1])
 
 
 def test_replay_idle_counts_the_gaps_inside_replays():

@@ -33,11 +33,14 @@ def mix(name):
         m["check"] = {"sample": 3}
         m["trace"] = {"start_frac": 0.5, "steps": 3}
     elif m["kind"] == "closed_loop_serve":
-        m.update(frames=dict(m["frames"], lo=6, hi=20), ids_min=2, ids_max=5, backlog=6,
-                 warmup_steps=6, drain_s=20.0)
-        m["batcher"].update(slots=4, admit_chunk=2, prefix_budget=16, max_len=40,
+        # a pool over cards keeps its 4 slots and its admit group per card
+        cards = m["batcher"].get("cards", 1)
+        m.update(frames=dict(m["frames"], lo=6, hi=20), ids_min=2, ids_max=5,
+                 backlog=6 * cards, warmup_steps=6, drain_s=20.0)
+        m["batcher"].update(slots=4 * cards, admit_chunk=2, prefix_budget=16, max_len=40,
                             frames_per_step=4)
-        m["check"] = {"sample": 2, "pool": 6}
+        m["check"] = ({"per_shard": 1, "pool": 6 * cards} if "per_shard" in m["check"]
+                      else {"sample": 2, "pool": 6})
         m["trace"] = {"start_frac": 0.5, "steps": 2}
     else:
         m.update(texts=8, words={"lo": 2, "hi": 5}, length_buckets=2)

@@ -2,7 +2,11 @@
 bounded stretch of steady work, its Chrome trace read back into device
 intervals, kernel sums, the busy union and the idle gaps named by what the
 host was doing, then deleted. The harness marks its own phases with
-record_function ranges (``bench.*``), the names the idle gaps carry."""
+record_function ranges (``bench.*``), the names the idle gaps carry.
+
+A run over several cards profiles them all in one stretch: each device
+event names its card (``args.device``), and the summary takes each card's
+busy union and idle gaps apart, over the same stretch."""
 
 from __future__ import annotations
 
@@ -32,13 +36,27 @@ def busy_union(intervals) -> float:
     return busy
 
 
-class SubWindow:
-    """Profile between start() and stop(); summary() reads the trace once."""
+def card_of(event: dict) -> int:
+    """The CUDA device index of a device event."""
+    return int((event.get("args") or {}).get("device", 0))
 
-    def __init__(self):
+
+class SubWindow:
+    """Profile between start() and stop(); summary() reads the trace once.
+    ``cards``: the CUDA device indices the run uses, each synchronized at
+    start and stop and summarized apart (default: the current device, and
+    the cards that events name)."""
+
+    def __init__(self, cards: Optional[List[int]] = None):
         self.prof = None
+        self.cards = list(cards) if cards else None
         self.t0 = self.t1 = 0.0
         self.events: Optional[List[dict]] = None
+
+    def _sync(self) -> None:
+        if torch.cuda.is_available():
+            for c in self.cards or [torch.cuda.current_device()]:
+                torch.cuda.synchronize(c)
 
     def start(self) -> None:
         from torch.profiler import ProfilerActivity, profile
@@ -47,13 +65,11 @@ class SubWindow:
             acts.append(ProfilerActivity.CUDA)
         self.prof = profile(activities=acts)
         self.prof.__enter__()
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+        self._sync()
         self.t0 = time.perf_counter()
 
     def stop(self) -> None:
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+        self._sync()
         self.t1 = time.perf_counter()
         self.prof.__exit__(None, None, None)
         d = tempfile.mkdtemp(prefix="bench_trace_")
@@ -81,20 +97,34 @@ class SubWindow:
         return sum(float(e["dur"]) for e in self.device_events() if match(str(e["name"]))) * 1e-6
 
     def summary(self) -> dict:
+        """Each card's busy union over the stretch (``busy_by_card``) and
+        their mean (``busy_s``); kernel time by name summed over the cards;
+        the idle gaps of every card, named by card where there are more
+        than one. On one card: that card's union, sums and gaps."""
         dev = self.device_events()
-        iv = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev)
-        busy = busy_union(iv) * 1e-6
+        per_card: Dict[int, list] = defaultdict(list)
+        for e in dev:
+            per_card[card_of(e)].append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+        cards = self.cards or sorted(per_card) or [0]
+        busy = {c: busy_union(per_card.get(c, ())) * 1e-6 for c in cards}
         by_name: Dict[str, float] = defaultdict(float)
         for e in dev:
             by_name[str(e["name"])] += float(e["dur"]) * 1e-6
         ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-        return {"busy_s": busy, "window_s": self.window_s, "device_ops": [list(o) for o in ops],
-                "idle_gaps": self._idle_gaps(iv), "n_device_events": len(dev)}
+        gaps: List[list] = []
+        for c in cards:
+            named = self._idle_gaps(sorted(per_card.get(c, ())))
+            gaps += [[f"cuda:{c} {n}", g] for n, g in named] if len(cards) > 1 else named
+        gaps = sorted(gaps, key=lambda kv: -kv[1])[:10]
+        return {"busy_s": sum(busy.values()) / len(cards), "window_s": self.window_s,
+                "busy_by_card": [[c, b] for c, b in busy.items()],
+                "device_ops": [list(o) for o in ops], "idle_gaps": gaps,
+                "n_device_events": len(dev)}
 
     def _idle_gaps(self, iv, longest: int = 400) -> List[list]:
-        """Gaps between device work inside the window, by the innermost host
-        event and the harness range around their midpoint; seconds summed
-        per name, the 10 largest."""
+        """Gaps between one card's device work inside the window, by the
+        innermost host event and the harness range around their midpoint;
+        seconds summed per name, the 10 largest."""
         if not iv:
             return []
         merged = [list(iv[0])]

@@ -9,7 +9,8 @@ frees the program and gathers the check's numbers, and returns a dict:
   * ``e2e``: every end-to-end metric the kind measures, by name;
   * ``obs``: what the per-layer readers (metrics/<metric>.py) read;
   * ``info``: counts for the run's earlier result line;
-  * ``peak``: the device's peak allocated bytes over set-up and window;
+  * ``peaks``: each card's peak allocated bytes over set-up and window,
+    one entry per card the run used (on the CPU, [0]);
   * ``attempted``, ``failed``: requests due in the window, and those that
     did not come back whole;
   * ``numbers``: the compared numbers by candidate (check.py), "program"

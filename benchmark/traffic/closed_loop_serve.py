@@ -35,8 +35,13 @@ class Feeder:
         self.window_rids = []
         rng = np.random.default_rng([seed & 0xFFFFFFFFFFFF, 4])
         self.P = mix["check"]["pool"]
-        self.pick = set(rng.choice(self.P, size=min(mix["check"]["sample"], self.P),
-                                   replace=False))
+        self.per_shard = mix["check"].get("per_shard")
+        self.pick = (set() if self.per_shard else
+                     set(rng.choice(self.P, size=min(mix["check"]["sample"], self.P),
+                                    replace=False)))
+        self.rng = rng
+        self.n_shards = len(run.b.shards)
+        self.unsampled = 0         # draws per shard that a shard had no request for
         self.watch_slots = self.P
         self.watched = None        # from start(): the window's first P requests, in order
         self.closed_flag = False
@@ -88,9 +93,21 @@ class Feeder:
 
     def sample_rids(self):
         """The drawn positions among the window's first requests that were
-        admitted, and the longest of those."""
+        admitted, or with ``per_shard`` the draws from each shard's among
+        them (with those the frame tap found on no shard); and the longest
+        of those requests. Called once, after the drain."""
         first = self.window_rids[:self.P]
-        out = {first[i] for i in self.pick if i < len(first)}
+        if self.per_shard:
+            specs = self.run.specs
+            found = self.run.tap.find([{"key": r, "frames": specs[r].frames} for r in first])
+            out = {r for r in first if r not in found}
+            for s in range(self.n_shards):
+                on = [r for r in first if r in found and found[r]["shard"] == s]
+                take = min(self.per_shard, len(on))
+                self.unsampled += self.per_shard - take
+                out.update(on[i] for i in self.rng.choice(len(on), size=take, replace=False))
+        else:
+            out = {first[i] for i in self.pick if i < len(first)}
         if first:
             out.add(max(first, key=lambda r: self.run.specs[r].frames))
         return sorted(out)

@@ -157,7 +157,7 @@ def drive(cell) -> dict:
         orun = OfflineRun(sysm, mix, cfg, cell.seed, cell.seconds, cell.trace, tap)
         res = orun.run()
         t_start, t_end = orun.t_start, orun.t_end
-        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        peaks = [torch.cuda.max_memory_allocated()] if on_card else [0]
         for ps in orun.passes:
             for call in ps["calls"]:
                 for k in ("latents", "eos", "frames"):
@@ -182,7 +182,7 @@ def drive(cell) -> dict:
             torch.cuda.empty_cache()
         numbers = readings(orun, sysm, cell.controls)
         return dict(t_start=t_start, e2e={"audio_s_per_s": audio_s / (t_end - t_start)},
-                    obs=obs, info=info, peak=peak,
+                    obs=obs, info=info, peaks=peaks,
                     attempted=sum(len(ps["texts"]) for ps in orun.passes),
                     failed=numbers["program"]["frames_bad"], numbers=numbers)
     finally:
