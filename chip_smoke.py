@@ -663,11 +663,17 @@ DECODE_CASES = ((torch.bfloat16, 256, 544, 160, (78, 134), 278, False),
                 (torch.float32, 16, 528, 153, (61, 153), 250, True),
                 (torch.bfloat16, 1, 200, 40, (20, 40), 150, False),
                 (torch.float32, 1, 200, 40, (20, 40), 150, True))
+# Grouped-query cases, (query heads, KV heads, softmax scale) after a
+# DECODE_CASES entry: the hybrid backbone's attention layer (granite4h-
+# serve-long's pool, 32 query heads over 8 KV heads, scale 1/64). Pocket's
+# cases above are 16 heads over 16 at 1/sqrt(64).
+GQA_CASES = ((DECODE_CASES[0], (32, 8, 0.015625)),)
 
 
 def decode_inputs(dtype, B: int, Tmax: int, t0: int, prefix, decoded: int, offline: bool,
-                  seed: int = 0):
-    """q [B, 16, 64] and one layer's random K/V [B, Tmax, 16, 64] on the card,
+                  seed: int = 0, heads=(16, 16)):
+    """q [B, Hq, 64] and one layer's random K/V [B, Tmax, Hkv, 64] on the card
+    (``heads`` = (Hq, Hkv), Pocket's 16 and 16 by default),
     with the mask of a KVCache whose decode ring (the columns from t0 on)
     has wrapped three times (``offline``: not at all, every stream started
     at t0 and ``decoded`` columns written), prefixes uniform in ``prefix``
@@ -685,8 +691,9 @@ def decode_inputs(dtype, B: int, Tmax: int, t0: int, prefix, decoded: int, offli
         start=torch.from_numpy(start).to(dev, torch.int32),
         cursor=torch.tensor(cursor, dtype=torch.int32, device=dev), t0=t0)
     mask = cache.valid_mask()
+    hq, hkv = heads
     q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev, dtype)
-               for s in ((B, 16, 64), (B, Tmax, 16, 64), (B, Tmax, 16, 64)))
+               for s in ((B, hq, 64), (B, Tmax, hkv, 64), (B, Tmax, hkv, 64)))
     return q, k, v, mask
 
 
@@ -695,7 +702,7 @@ def rms_rel(got: torch.Tensor, want: torch.Tensor) -> float:
     return ((got.float() - want.float()).norm() / want.float().norm().clamp(min=1e-30)).item()
 
 
-def decode_controls(q, k, v, mask, splits: int) -> dict:
+def decode_controls(q, k, v, mask, splits: int, scale=None) -> dict:
     """Two wrong kernels, made by feeding the right one wrong inputs, that
     the bf16 gates must tell from it: {"fp8": K and V rounded to
     float8_e4m3fn, "drop": the first valid column of every split's share
@@ -709,7 +716,8 @@ def decode_controls(q, k, v, mask, splits: int) -> dict:
         for s in range(splits):
             if s * n // splits < (s + 1) * n // splits:
                 dropped[b, cols[s * n // splits]] = False
-    return {"fp8": da.decode_attention(q, *fp8, mask), "drop": da.decode_attention(q, k, v, dropped)}
+    return {"fp8": da.decode_attention(q, *fp8, mask, scale),
+            "drop": da.decode_attention(q, k, v, dropped, scale)}
 
 
 def phase_decode(seen) -> list:
@@ -727,35 +735,43 @@ def phase_decode(seen) -> list:
     held = {(tag[c[0]], c[1], c[2]) for c in DECODE_CASES}
     # a launched shape with no case of its own: a 3-times-wrapped ring over
     # the cache's second half, prefixes of a quarter to a half of it
+    # (Pocket's heads; a grouped launch is keyed with its heads)
     extra = [(dtypes[d], B, T, T // 2, (T // 4, T // 2), max(T - T // 2, 1), False)
-             for d, B, T in sorted(set(seen) - held)]
+             for d, B, T in sorted(set(k for k in seen if len(k) == 3) - held)]
+    pocket = (16, 16, None)
+    runs = ([(c, pocket, True) for c in DECODE_CASES] + [(c, g, True) for c, g in GQA_CASES]
+            + [(c, pocket, False) for c in extra])
     gates, rms_gate = sanitize.DECODE_GATES, sanitize.DECODE_RMS_GATE
     cases = []
-    for i, (dtype, B, Tmax, t0, prefix, decoded, offline) in enumerate(DECODE_CASES + tuple(extra)):
+    for (dtype, B, Tmax, t0, prefix, decoded, offline), (hq, hkv, scale), main in runs:
         q, k, v, mask = decode_inputs(dtype, B, Tmax, t0, prefix, decoded, offline,
-                                      seed=B + Tmax)
-        got = da.decode_attention(q, k, v, mask)
-        want = flowlm.decode_attention_masked(q, k, v, mask)
+                                      seed=B + Tmax, heads=(hq, hkv))
+        got = da.decode_attention(q, k, v, mask, scale)
+        want = flowlm.decode_attention_masked(q, k, v, mask, scale)
         torch.cuda.synchronize()
-        what = f"decode {tag[dtype]} {B}x{Tmax}"
+        what = f"decode {tag[dtype]} {B}x{Tmax} {hq}/{hkv} heads"
         check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
         abs_e, rel_e = rel_err(got, want)
         rms_e = rms_rel(got, want)
         valid = int(mask.sum())
         esize = torch.finfo(dtype).bits // 8
-        nbytes = (2 * valid + 2 * B) * 16 * 64 * esize
+        # the valid columns' K and V rows of the KV heads, q and out of the query heads
+        nbytes = (2 * valid * hkv + 2 * B * hq) * 64 * esize
         bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
         splits = da.splits_for(B, Tmax, sms)
-        call = lambda: da.decode_attention(q, k, v, mask)  # noqa: E731
+        call = lambda: da.decode_attention(q, k, v, mask, scale)  # noqa: E731
         ms = call_device_ms(call)
-        main = i < len(DECODE_CASES)   # the profiler's split of the call at these alone
+        # main: the profiler's split of the call at these alone
         kernel_ms = kernel_device_ms(call, "decode_attn_kernel") if main else None
         combine_ms = (kernel_device_ms(call, "decode_attn_combine") if splits > 1 else 0.0
                       ) if main else None
-        plain_ms = call_device_ms(lambda: flowlm.decode_attention_masked(q, k, v, mask))
-        library_ms = call_device_ms(lambda: sdpa(q[:, :, None], k.transpose(1, 2),
-                                                 v.transpose(1, 2), attn_mask=mask[:, None, None]))
-        case = dict(dtype=tag[dtype], B=B, T=Tmax, launched=not main,
+        plain_ms = call_device_ms(lambda: flowlm.decode_attention_masked(q, k, v, mask, scale))
+        # the library call on the KV heads repeated for their groups (made outside the timing)
+        kl, vl = (x.repeat_interleave(hq // hkv, dim=2).transpose(1, 2) for x in (k, v))
+        library_ms = call_device_ms(lambda: sdpa(q[:, :, None], kl, vl,
+                                                 attn_mask=mask[:, None, None], scale=scale))
+        del kl, vl
+        case = dict(dtype=tag[dtype], B=B, T=Tmax, heads=[hq, hkv], launched=not main,
                     valid_share=valid / (B * Tmax), splits=splits, ms=ms, kernel_ms=kernel_ms,
                     combine_ms=combine_ms, host_us=host_us(call), bytes=nbytes,
                     bound_ms=bound_ms, bound_by="bytes", share=bound_ms / ms, plain_ms=plain_ms,
@@ -764,11 +780,12 @@ def phase_decode(seen) -> list:
         if dtype == torch.bfloat16 and main:
             case["controls"] = {name: dict(max_rel_err=rel_err(out, want)[1],
                                            rms_rel_err=rms_rel(out, want))
-                                for name, out in decode_controls(q, k, v, mask, splits).items()}
+                                for name, out in decode_controls(q, k, v, mask, splits,
+                                                                 scale).items()}
             controls = "; controls " + ", ".join(
                 f"{n} rel {c['max_rel_err']:.3e} rms {c['rms_rel_err']:.3e}"
                 for n, c in case["controls"].items())
-        print(f"decode_attention {tag[dtype]} B={B} Tmax={Tmax}: valid "
+        print(f"decode_attention {tag[dtype]} B={B} Tmax={Tmax} heads {hq}/{hkv}: valid "
               f"{case['valid_share']:.1%}, {splits} split(s); rel {rel_e:.3e}, rms {rms_e:.3e}"
               f"{controls}; call {ms:.4f} ms (events, median of 30, L2 flushed)"
               + (f" = kernel {kernel_ms:.4f} + combine {combine_ms:.4f} ms (profiler)" if main

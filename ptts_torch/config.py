@@ -33,13 +33,67 @@ class FlowLMConfig:
     flow_depth: int = 6
     time_freqs: int = 128      # timestep embedding frequency count
     max_period: float = 10000.0
-    ln_eps: float = 1e-5
+    ln_eps: float = 1e-5       # out_norm's eps (and the hybrid's RMSNorm eps)
     flow_ln_eps: float = 1e-6  # flow-net resblock / final-layer LayerNorm eps
     rms_eps: float = 1e-5      # time-embed RMSNorm eps
+    # The backbone. Empty layer_types: Pocket-TTS's transformer (LayerNorm,
+    # multi-head attention with RoPE, GELU FFN of width ``hidden``). Otherwise
+    # one kind per layer, "mamba" or "attention": a Granite 4.0-H hybrid
+    # (models/hybrid.py) of pre-RMSNorm layers, each a Mamba-2 or a GQA mixer
+    # without position encoding, then a SwiGLU MLP of width ``hidden``.
+    layer_types: Tuple[str, ...] = ()
+    num_kv_heads: int = 0              # GQA key/value heads (0: num_heads)
+    embedding_multiplier: float = 1.0  # scales the text-embedding rows
+    residual_multiplier: float = 1.0   # scales each mixer's and MLP's residual add
+    attention_multiplier: float = 0.0  # softmax scale of q.k (0: 1/sqrt(head_dim))
+    mamba_heads: int = 0
+    mamba_head_dim: int = 64
+    mamba_d_state: int = 128
+    mamba_d_conv: int = 4
+    mamba_expand: int = 2
+    mamba_chunk: int = 256             # prefill scan chunk (positions)
+
+    def __post_init__(self):
+        if self.layer_types:
+            bad = set(self.layer_types) - {"mamba", "attention"}
+            if bad or len(self.layer_types) != self.num_layers:
+                raise ValueError(f"layer_types must name num_layers={self.num_layers} layers "
+                                 f"of 'mamba' or 'attention', got {self.layer_types}")
+            if self.num_heads % self.kv_heads or self.mamba_heads * self.mamba_head_dim != (
+                    self.mamba_expand * self.d_model):
+                raise ValueError("the hybrid's head counts do not divide its widths")
 
     @property
     def qkv_dim(self) -> int:
         return 3 * self.d_model
+
+    @property
+    def kv_heads(self) -> int:
+        return self.num_kv_heads or self.num_heads
+
+    @property
+    def attn_scale(self) -> float:
+        return self.attention_multiplier or self.head_dim ** -0.5
+
+    @property
+    def mamba_layers(self) -> Tuple[int, ...]:
+        return tuple(i for i, t in enumerate(self.layer_types) if t == "mamba")
+
+    @property
+    def attention_layers(self) -> Tuple[int, ...]:
+        """Layers with a KV cache: every layer of Pocket's transformer."""
+        if not self.layer_types:
+            return tuple(range(self.num_layers))
+        return tuple(i for i, t in enumerate(self.layer_types) if t == "attention")
+
+    @property
+    def mamba_inner(self) -> int:
+        return self.mamba_heads * self.mamba_head_dim
+
+    @property
+    def mamba_conv_dim(self) -> int:
+        """Channels of the depthwise conv: x, then B and C (one group)."""
+        return self.mamba_inner + 2 * self.mamba_d_state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,6 +205,13 @@ def resolve_kernel_impl(choice: str, env_var: str, on_card: bool, what: str) -> 
     if choice == "kernel" and not on_card:
         raise ValueError(f"{what} 'kernel' needs a CUDA device")
     return choice
+
+
+def is_hybrid(cfg) -> bool:
+    """Whether a FlowLM config names the hybrid backbone; any config object
+    the model functions take (the tests hand them the JAX package's, which
+    describes Pocket's transformer alone) reads False without layer_types."""
+    return bool(getattr(cfg, "layer_types", ()))
 
 
 DEFAULT_FLOWLM = FlowLMConfig()

@@ -21,7 +21,7 @@ from typing import Dict, Mapping, Optional
 import torch
 from torch import nn
 
-from .config import FlowLMConfig, MimiConfig
+from .config import FlowLMConfig, MimiConfig, is_hybrid
 from .ops.rope import permute_qk_rows_for_rope
 from .utils.packing import tree_to_device
 
@@ -45,12 +45,17 @@ class TensorTree(nn.Module):
 def flowlm_weights(w: Mapping, cfg: FlowLMConfig = FlowLMConfig(),
                    dtype: torch.dtype = torch.float32, device="cpu",
                    stats: Optional[Dict[str, float]] = None) -> TensorTree:
-    """FlowLM host dict -> device weights, in_proj in the halves RoPE layout.
-    ``stats``: see utils/packing.tree_to_device."""
-    if w["in_proj"].shape[-2] != 3 * cfg.d_model:
-        raise ValueError("FlowLMConfig does not match the weights")
+    """FlowLM host dict -> device weights, in_proj in the halves RoPE layout
+    (a hybrid backbone, which has no RoPE, as it is). ``stats``: see
+    utils/packing.tree_to_device."""
     w = dict(w)
-    w["in_proj"] = permute_qk_rows_for_rope(w["in_proj"], cfg.num_heads, cfg.head_dim)
+    if is_hybrid(cfg):
+        if w["hybrid"]["mlp_in"].shape[-1] != cfg.d_model:
+            raise ValueError("FlowLMConfig does not match the weights")
+    else:
+        if w["in_proj"].shape[-2] != 3 * cfg.d_model:
+            raise ValueError("FlowLMConfig does not match the weights")
+        w["in_proj"] = permute_qk_rows_for_rope(w["in_proj"], cfg.num_heads, cfg.head_dim)
     return TensorTree(tree_to_device(w, dtype, device, stats))
 
 

@@ -42,9 +42,16 @@
 //     ceil(Tmax / MAX_COLS), so a share always fits the list). With more
 //     than one, each block writes (m, l, acc) per head to a scratch buffer
 //     and a second kernel combines them.
+//   * Grouped-query attention: with G query heads per KV head (KV head j
+//     serves query heads j*G .. j*G + G-1), the block walks the KV rows of
+//     the Hkv heads as above and each thread scores its K chunk against
+//     the G query heads of its KV head, so K and V are read once for all
+//     G of them; the thread keeps G online-softmax states. G = 1 is
+//     FlowLM's multi-head attention, in the same arithmetic as before
+//     grouping was added. The softmax scale is the caller's.
 // Numerics, against the plain version: scores taken in f32 from the
 // inputs' own type (a bf16 x bf16 product is exact in f32), summed over D
-// in f32 and scaled by 1/sqrt(D) after the sum; f32 softmax statistics; p
+// in f32 and scaled (1/sqrt(D) for FlowLM) after the sum; f32 softmax statistics; p
 // rounded to V's type before p.V (as probs.to(v.dtype) does, here on the
 // unnormalised p of the online form); p.V accumulated in f32; the sum
 // clamped at 1e-30; the output rounded to q's type. f32 caches stay in
@@ -132,12 +139,13 @@ __device__ __forceinline__ void merge(float& m, float& l, float* a, float mo, fl
   m = mx;
 }
 
-// grid (splits, batch), NT threads. q and out [B, H, D]; k and v [B, Tmax,
-// H, D]; mask [B, Tmax] bytes (0 = masked); part [B, splits, H, 2 + D] f32
-// (m, l, acc) when splits > 1. Thread (r, c) = (tid / tpr, tid % tpr) owns
-// lanes c*N .. c*N + N-1 of the H*D row (head c*N / D) and the columns of
+// grid (splits, batch), NT threads. q and out [B, G*H, D]; k and v [B,
+// Tmax, H, D] (H = heads, the KV heads); mask [B, Tmax] bytes (0 = masked);
+// part [B, splits, G*H, 2 + D] f32 (m, l, acc) when splits > 1. Thread (r,
+// c) = (tid / tpr, tid % tpr) owns lanes c*N .. c*N + N-1 of the H*D row
+// (KV head c*N / D, query heads G times that onwards) and the columns of
 // row slot r.
-template <typename T>
+template <typename T, int G>
 __global__ void __launch_bounds__(NT)
 decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    const unsigned char* __restrict__ mask, T* __restrict__ out,
@@ -153,7 +161,10 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   const int warp = tid / 32, lane = tid % 32;
   const int tpr = heads * LPH, rp = NT / tpr;
   const int r = tid / tpr, c = tid % tpr;
-  const size_t row = (size_t)heads * D;
+  const size_t row = (size_t)heads * D;                    // a K/V row
+  const int qheads = G * heads;
+  // this thread's lanes of query head g of its group, in q and out
+  const size_t qat = (size_t)b * qheads * D + (size_t)(c / LPH) * G * D + (size_t)(c % LPH) * N;
   const unsigned char* mrow = mask + (size_t)b * tmax;
 
   // 1. How many columns are valid; none -> every column, at equal scores.
@@ -195,8 +206,10 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 
   // 3. Walk the list rp columns a step: at step j, row slot r takes entry
   //    j * rp + r. Copies run STAGES - 1 steps ahead of the math.
-  float qf[N];
-  C::unpack(*reinterpret_cast<const uint4*>(q + (size_t)b * row + (size_t)c * N), qf);
+  float qf[G][N];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+    C::unpack(*reinterpret_cast<const uint4*>(q + qat + (size_t)g * D), qf[g]);
   const T* kb = k + (size_t)b * tmax * row + (size_t)c * N;
   const T* vb = v + (size_t)b * tmax * row + (size_t)c * N;
   const int steps = (mine + rp - 1) / rp;
@@ -212,68 +225,84 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 #pragma unroll
   for (int j = 0; j < STAGES - 1; ++j) fetch(j);
 
-  float m = NEG_INF, l = 0.f, acc[N];
+  float m[G], l[G], acc[G][N];
 #pragma unroll
-  for (int e = 0; e < N; ++e) acc[e] = 0.f;
+  for (int g = 0; g < G; ++g) {
+    m[g] = NEG_INF;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < N; ++e) acc[g][e] = 0.f;
+  }
   for (int j = 0; j < steps; ++j) {
     fetch(j + STAGES - 1);
     cp_wait<STAGES - 1>();   // this thread's copies of step j have landed
     float kf[N], vf[N];
     C::unpack(ring[j % STAGES][0][tid], kf);
     C::unpack(ring[j % STAGES][1][tid], vf);
-    float dot = 0.f;
+    const bool live = j * rp + r < mine;   // the same in all LPH threads of the head
 #pragma unroll
-    for (int e = 0; e < N; ++e) dot = fmaf(qf[e], kf[e], dot);
+    for (int g = 0; g < G; ++g) {
+      float dot = 0.f;
 #pragma unroll
-    for (int o = LPH / 2; o > 0; o /= 2) dot += __shfl_xor_sync(0xffffffffu, dot, o);
-    if (j * rp + r < mine) {   // the same in all LPH threads of the head
-      const float s = uniform ? NEG_INF : dot * scale;
-      const float mx = fmaxf(m, s), corr = expf(m - mx), p = expf(s - mx);
-      l = l * corr + p;
-      const float pv = C::round(p);
+      for (int e = 0; e < N; ++e) dot = fmaf(qf[g][e], kf[e], dot);
 #pragma unroll
-      for (int e = 0; e < N; ++e) acc[e] = fmaf(pv, vf[e], acc[e] * corr);
-      m = mx;
+      for (int o = LPH / 2; o > 0; o /= 2) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      if (live) {
+        const float s = uniform ? NEG_INF : dot * scale;
+        const float mx = fmaxf(m[g], s), corr = expf(m[g] - mx), p = expf(s - mx);
+        l[g] = l[g] * corr + p;
+        const float pv = C::round(p);
+#pragma unroll
+        for (int e = 0; e < N; ++e) acc[g][e] = fmaf(pv, vf[e], acc[g][e] * corr);
+        m[g] = mx;
+      }
     }
   }
   cp_wait<0>();
 
-  // 4. Merge the row slots into slot 0 through the (now idle) ring.
+  // 4. Merge the row slots into slot 0 through the (now idle) ring, one
+  //    query head of the group at a time.
   if (rp > 1) {
-    __syncthreads();
-    float* st = reinterpret_cast<float*>(&ring[0][0][0]);   // [NT][2 + N]
-    if (r > 0) {
-      float* x = st + tid * (2 + N);
-      x[0] = m;
-      x[1] = l;
+    float* st = reinterpret_cast<float*>(&ring[0][0][0]);   // [NT - tpr][2 + N]
 #pragma unroll
-      for (int e = 0; e < N; ++e) x[2 + e] = acc[e];
-    }
-    __syncthreads();
-    if (r == 0)
-      for (int o = 1; o < rp; ++o) {
-        const float* x = st + (o * tpr + c) * (2 + N);
-        merge<N>(m, l, acc, x[0], x[1], x + 2);
+    for (int g = 0; g < G; ++g) {
+      __syncthreads();
+      if (r > 0) {
+        float* x = st + (tid - tpr) * (2 + N);
+        x[0] = m[g];
+        x[1] = l[g];
+#pragma unroll
+        for (int e = 0; e < N; ++e) x[2 + e] = acc[g][e];
       }
+      __syncthreads();
+      if (r == 0)
+        for (int o = 1; o < rp; ++o) {
+          const float* x = st + ((o - 1) * tpr + c) * (2 + N);
+          merge<N>(m[g], l[g], acc[g], x[0], x[1], x + 2);
+        }
+    }
   }
   if (r != 0) return;
 
   // 5. One split: the output. Several: this split's state, for the combine.
-  if (splits == 1) {
-    const float den = fmaxf(l, 1e-30f);
-    float o[N];
 #pragma unroll
-    for (int e = 0; e < N; ++e) o[e] = acc[e] / den;
-    *reinterpret_cast<uint4*>(out + (size_t)b * row + (size_t)c * N) = C::pack(o);
-  } else {
-    const int h = c / LPH, d0 = (c % LPH) * N;
-    float* p = part + (((size_t)b * splits + split) * heads + h) * (2 + D);
-    if (d0 == 0) {
-      p[0] = m;
-      p[1] = l;
+  for (int g = 0; g < G; ++g) {
+    if (splits == 1) {
+      const float den = fmaxf(l[g], 1e-30f);
+      float o[N];
+#pragma unroll
+      for (int e = 0; e < N; ++e) o[e] = acc[g][e] / den;
+      *reinterpret_cast<uint4*>(out + qat + (size_t)g * D) = C::pack(o);
+    } else {
+      const int h = (c / LPH) * G + g, d0 = (c % LPH) * N;
+      float* p = part + (((size_t)b * splits + split) * qheads + h) * (2 + D);
+      if (d0 == 0) {
+        p[0] = m[g];
+        p[1] = l[g];
+      }
+#pragma unroll
+      for (int e = 0; e < N; ++e) p[2 + d0 + e] = acc[g][e];
     }
-#pragma unroll
-    for (int e = 0; e < N; ++e) p[2 + d0 + e] = acc[e];
   }
 }
 
@@ -300,39 +329,55 @@ decode_attn_combine(const float* __restrict__ part, T* __restrict__ out, int bat
   out[i] = Chunk<T>::from(a / fmaxf(l, 1e-30f));
 }
 
-template <typename T>
+template <typename T, int G>
 int launch(const void* q, const void* k, const void* v, const void* mask, void* out, void* part,
            int batch, int tmax, int heads, int splits, float scale, cudaStream_t stream) {
-  decode_attn_kernel<T><<<dim3(splits, batch), NT, 0, stream>>>(
+  decode_attn_kernel<T, G><<<dim3(splits, batch), NT, 0, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const unsigned char*)mask, (T*)out, (float*)part,
       tmax, heads, splits, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
-  const int total = batch * heads * D;
+  const int total = batch * G * heads * D;
   decode_attn_combine<T><<<(total + COMBINE_THREADS - 1) / COMBINE_THREADS, COMBINE_THREADS, 0,
-                           stream>>>((const float*)part, (T*)out, batch, heads, splits);
+                           stream>>>((const float*)part, (T*)out, batch, G * heads, splits);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_group(const void* q, const void* k, const void* v, const void* mask, void* out,
+                 void* part, int batch, int tmax, int heads, int group, int splits, float scale,
+                 cudaStream_t s) {
+  switch (group) {
+    case 1: return launch<T, 1>(q, k, v, mask, out, part, batch, tmax, heads, splits, scale, s);
+    case 2: return launch<T, 2>(q, k, v, mask, out, part, batch, tmax, heads, splits, scale, s);
+    case 4: return launch<T, 4>(q, k, v, mask, out, part, batch, tmax, heads, splits, scale, s);
+    case 8: return launch<T, 8>(q, k, v, mask, out, part, batch, tmax, heads, splits, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, out [B, H, 64]; k, v [B, Tmax, H, 64], contiguous, 16-byte aligned, all
+// q, out [B, group * H, 64]; k, v [B, Tmax, H, 64] (H KV heads, each serving
+// ``group`` query heads: 1, 2, 4 or 8), contiguous, 16-byte aligned, all
 // float32 (is_bf16 == 0) or all bfloat16; mask [B, Tmax] bool; part: f32
-// scratch of B * splits * H * 66 when splits > 1 (else unused). H * 64 * the
-// element size must divide 4096 bytes, and ceil(Tmax / splits) <= 1024.
-// Returns a cudaError_t (0 on success).
+// scratch of B * splits * group * H * 66 when splits > 1 (else unused).
+// H * 64 * the element size must divide 4096 bytes, and ceil(Tmax / splits)
+// <= 1024. Returns a cudaError_t (0 on success).
 int ptts_decode_attn(const void* q, const void* k, const void* v, const void* mask, void* out,
-                     void* part, int batch, int tmax, int heads, int splits, float scale,
-                     int is_bf16, void* stream) {
+                     void* part, int batch, int tmax, int heads, int group, int splits,
+                     float scale, int is_bf16, void* stream) {
   const int chunks = heads * D * (is_bf16 ? 2 : 4) / 16;   // 16-byte chunks per row
   if (batch < 1 || batch > 65535 || tmax < 1 || heads < 1 || NT % chunks != 0 || splits < 1 ||
       (tmax + splits - 1) / splits > MAX_COLS)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  return is_bf16 ? launch<bf16>(q, k, v, mask, out, part, batch, tmax, heads, splits, scale, s)
-                 : launch<float>(q, k, v, mask, out, part, batch, tmax, heads, splits, scale, s);
+  return is_bf16 ? launch_group<bf16>(q, k, v, mask, out, part, batch, tmax, heads, group,
+                                      splits, scale, s)
+                 : launch_group<float>(q, k, v, mask, out, part, batch, tmax, heads, group,
+                                       splits, scale, s);
 }
 
 }  // extern "C"

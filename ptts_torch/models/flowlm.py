@@ -17,6 +17,12 @@ the masked einsum on CPU tensors), or with ``KernelFlags.decode_impl``
 "einsum" the masked einsum (ops/attention.decode_attention_masked, as the
 JAX package leaves it to XLA) and "blocked" the blocked online softmax
 (ops/attention.decode_attention_blocked).
+
+A config with ``layer_types`` swaps the transformer for Granite 4.0-H's
+hybrid stack (models/hybrid.py): the cache then holds each Mamba layer's
+SSM and conv state beside the attention layers' K/V, and load_weights,
+make_cache, prefill_state, prefill and decode_step take that backbone's
+path; the heads, the frame loops and the callers are the same.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import convert
-from ..config import FlowLMConfig, KernelFlags, resolve_kernel_impl
+from ..config import FlowLMConfig, KernelFlags, is_hybrid, resolve_kernel_impl
 from ..ops.activations import gelu_erf, silu
 from ..ops.attention import decode_attention_blocked, decode_attention_masked
 from ..ops.cuda.decode_attention import decode_attention
@@ -38,13 +44,15 @@ from ..ops.cuda.fused_attention import causal_attention_qkv, causal_attention_qk
 from ..ops.norms import kyutai_rmsnorm, layernorm
 from ..ops.rope import rope_rotate_halves
 from ..utils import timing
+from . import hybrid
 
 DEFAULT_FLAGS = KernelFlags()
 
 
 def _decode_attention_dispatch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                                mask: torch.Tensor, scalars: tuple,
-                               flags: KernelFlags) -> torch.Tensor:
+                               flags: KernelFlags, scale: Optional[float] = None
+                               ) -> torch.Tensor:
     """The decode attention that ``flags.decode_impl`` chooses: "auto" (the
     kernel's wrapper, ops/cuda/decode_attention: the kernel on a CUDA
     tensor, decode_attention_masked on the CPU), "einsum"
@@ -54,11 +62,14 @@ def _decode_attention_dispatch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: 
     ``[ptts] validate decode_attention maxdiff=...`` (beside the largest
     |output|) and returns the masked einsum's, as the JAX package does
     (the reference's PTTS_CUDA_VALIDATE pattern). The print reads both
-    results back, so validate mode syncs the host once per layer."""
+    results back, so validate mode syncs the host once per layer. ``scale``
+    (grouped-query caches, models/hybrid) is taken by "auto" and "einsum"."""
     if flags.decode_impl == "auto":
-        return decode_attention(q, k_cache, v_cache, mask)
+        return decode_attention(q, k_cache, v_cache, mask, scale)
     if flags.decode_impl == "einsum":
-        return decode_attention_masked(q, k_cache, v_cache, mask)
+        return decode_attention_masked(q, k_cache, v_cache, mask, scale)
+    if scale is not None:
+        raise ValueError("the blocked decode attention takes Pocket's heads only")
     b = decode_attention_blocked(q, k_cache, v_cache, *scalars)
     if not flags.validate:
         return b
@@ -99,7 +110,10 @@ def _get(st, name: str, optional: bool = False, dtype: torch.dtype = torch.float
 def load_weights(st, cfg: FlowLMConfig = FlowLMConfig(),
                  dtype: torch.dtype = torch.float32) -> dict:
     """The FlowLM host dict from a SafetensorsFile; leaf for leaf the dict
-    ptts_tpu.models.flowlm.load_weights returns.
+    ptts_tpu.models.flowlm.load_weights returns. A hybrid config reads
+    Granite's layer names instead (models/hybrid.load_backbone) into the
+    dict's "hybrid" group, and the text embedding comes scaled by
+    ``embedding_multiplier``.
 
     ``dtype=torch.float32``: f32 numpy arrays. ``dtype=torch.bfloat16`` is
     the bf16 engine's cold start: torch.bfloat16 CPU tensors, BF16-stored
@@ -121,8 +135,26 @@ def load_weights(st, cfg: FlowLMConfig = FlowLMConfig(),
     tl = "transformer.layers.{}."
     te = "flow_net.time_embed.{}."
     rb = "flow_net.res_blocks.{}."
+    embed = get("conditioner.embed.weight")
+    m = getattr(cfg, "embedding_multiplier", 1.0)
+    if m != 1.0:                           # scaled once here, for every prompt path
+        embed = (embed * np.float32(m) if dtype == torch.float32
+                 else (embed.float() * m).to(torch.bfloat16))
+    if is_hybrid(cfg):
+        backbone = {"hybrid": hybrid.load_backbone(get, stack_fn, cfg)}
+    else:
+        backbone = {
+            "in_proj": stack(tl + "self_attn.in_proj.weight"),
+            "out_proj": stack(tl + "self_attn.out_proj.weight"),
+            "norm1_w": stack(tl + "norm1.weight"),
+            "norm1_b": stack(tl + "norm1.bias"),
+            "norm2_w": stack(tl + "norm2.weight"),
+            "norm2_b": stack(tl + "norm2.bias"),
+            "linear1": stack(tl + "linear1.weight"),
+            "linear2": stack(tl + "linear2.weight"),
+        }
     return {
-        "embed": get("conditioner.embed.weight"),
+        "embed": embed,
         "speaker_proj": get("speaker_proj_weight", optional=True),
         "emb_std": get("emb_std"),
         "emb_mean": get("emb_mean"),
@@ -132,14 +164,7 @@ def load_weights(st, cfg: FlowLMConfig = FlowLMConfig(),
         "out_norm_b": get("out_norm.bias"),
         "out_eos_w": get("out_eos.weight").reshape(-1),
         "out_eos_b": get("out_eos.bias").reshape(()),
-        "in_proj": stack(tl + "self_attn.in_proj.weight"),
-        "out_proj": stack(tl + "self_attn.out_proj.weight"),
-        "norm1_w": stack(tl + "norm1.weight"),
-        "norm1_b": stack(tl + "norm1.bias"),
-        "norm2_w": stack(tl + "norm2.weight"),
-        "norm2_b": stack(tl + "norm2.bias"),
-        "linear1": stack(tl + "linear1.weight"),
-        "linear2": stack(tl + "linear2.weight"),
+        **backbone,
         "flow": {
             "cond_w": get("flow_net.cond_embed.weight"),
             "cond_b": get("flow_net.cond_embed.bias"),
@@ -208,7 +233,13 @@ class KVCache:
     for the cache's life and stays a host int. ``cursor_host`` mirrors the
     cursor on the host where the eager path keeps it (None where a graph
     advances the cursor); only the blocked decode attention reads it.
-    decode_step writes k and v IN PLACE and advances the cursor in place."""
+    decode_step writes k and v IN PLACE and advances the cursor in place.
+
+    With a hybrid backbone (models/hybrid.py) k and v hold its attention
+    layers alone, [La, B, Tmax, Hkv, D], and ``ssm`` [Lm, B, H, P, N] and
+    ``conv`` [Lm, B, d_conv - 1, C] each Mamba layer's per-row state, which
+    has no columns and no mask: a prefill overwrites a row's state whole
+    and a decode step advances it in place."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -217,6 +248,8 @@ class KVCache:
     cursor: torch.Tensor      # 0-d int32: next decode write (monotonic)
     t0: int                   # first decode column
     cursor_host: Optional[int] = None
+    ssm: Optional[torch.Tensor] = None
+    conv: Optional[torch.Tensor] = None
 
     @property
     def max_len(self) -> int:
@@ -261,14 +294,20 @@ def seek(cache: KVCache, cursor: int, t0: int) -> KVCache:
 
 def make_cache(cfg: FlowLMConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.float32, device="cpu") -> KVCache:
-    """An empty [L, batch, max_len, H, D] cache for ``prefill`` to fill."""
-    shape = (cfg.num_layers, batch, max_len, cfg.num_heads, cfg.head_dim)
+    """An empty [L, batch, max_len, H, D] cache for ``prefill`` to fill (a
+    hybrid's: its attention layers' K/V and its Mamba layers' zero state)."""
+    if is_hybrid(cfg):
+        shape = (len(cfg.attention_layers), batch, max_len, cfg.kv_heads, cfg.head_dim)
+        ssm, conv = hybrid.make_state(cfg, batch, dtype, device)
+    else:
+        shape = (cfg.num_layers, batch, max_len, cfg.num_heads, cfg.head_dim)
+        ssm = conv = None
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device),
                    prefix_len=torch.zeros(batch, dtype=torch.int32, device=device),
                    start=torch.zeros(batch, dtype=torch.int32, device=device),
                    cursor=torch.zeros((), dtype=torch.int32, device=device), t0=0,
-                   cursor_host=0)
+                   cursor_host=0, ssm=ssm, conv=conv)
 
 
 def resolve_prefill_impl(choice: str = "auto", device="cpu") -> str:
@@ -310,6 +349,22 @@ def prefill_kv(w, x: torch.Tensor, lengths: torch.Tensor, cfg: FlowLMConfig,
     return torch.stack(ks), torch.stack(vs), last
 
 
+def prefill_state(w, x: torch.Tensor, lengths: torch.Tensor, cfg: FlowLMConfig,
+                  attn_impl: str = "auto"):
+    """prefill_kv's (k, v, last) and the per-row state that a backbone keeps
+    beside its K/V: a hybrid's Mamba (ssm, conv) states at each row's
+    length (models/hybrid.prefill), None for Pocket's transformer."""
+    if is_hybrid(cfg):
+        return hybrid.prefill(w, x, lengths, cfg)
+    return prefill_kv(w, x, lengths, cfg, attn_impl) + (None,)
+
+
+def write_state(cache: KVCache, rows: Optional[torch.Tensor], state) -> None:
+    """prefill_state's per-row state into the cache's rows (all when None)."""
+    if state is not None:
+        hybrid.write_state(cache, rows, state)
+
+
 def prefill_init(w, x: torch.Tensor, lengths: torch.Tensor, cfg: FlowLMConfig,
                  max_len: int, attn_impl: str = "auto",
                  graphs=None) -> Tuple[KVCache, torch.Tensor]:
@@ -329,9 +384,10 @@ def prefill(w, cache: KVCache, x: torch.Tensor, lengths: torch.Tensor,
     T columns in place, and start = t0 = cursor = T. Returns the cache and
     the transformer output at each stream's last valid position [B, d]."""
     T = x.shape[1]
-    k_new, v_new, last = prefill_kv(w, x, lengths, cfg, attn_impl)
+    k_new, v_new, last, state = prefill_state(w, x, lengths, cfg, attn_impl)
     cache.k[:, :, :T] = k_new.to(cache.k.dtype)
     cache.v[:, :, :T] = v_new.to(cache.v.dtype)
+    write_state(cache, None, state)
     cache.prefix_len.copy_(lengths)
     cache.start.fill_(T)
     return seek(cache, T, T), last
@@ -354,7 +410,22 @@ def decode_step(w, cache: KVCache, x: torch.Tensor, cfg: FlowLMConfig,
     advances the cursor in place (the returned cache shares every tensor
     with ``cache``). The decode attention is the one ``flags`` chooses
     (_decode_attention_dispatch). ``live`` (0-d bool, the chunked loop's
-    gate): when False the column keeps its old k/v and the cursor stays."""
+    gate): when False the column keeps its old k/v and the cursor stays
+    (and a hybrid's Mamba states keep theirs)."""
+    if is_hybrid(cfg):
+        x = hybrid.decode_step(w, cache, x, cfg, lambda q, k, v, m, scale: (
+            _decode_attention_dispatch(q, k, v, m, None, flags, scale)), live)
+    else:
+        x = _transformer_step(w, cache, x, cfg, flags, live)
+    cache.cursor.add_(1 if live is None else live.to(torch.int32))
+    mirror = None if cache.cursor_host is None or live is not None else cache.cursor_host + 1
+    return dataclasses.replace(cache, cursor_host=mirror), x
+
+
+def _transformer_step(w, cache: KVCache, x: torch.Tensor, cfg: FlowLMConfig,
+                      flags: KernelFlags, live: Optional[torch.Tensor]) -> torch.Tensor:
+    """decode_step's layers for Pocket's transformer: each writes its k/v at
+    the cursor column and attends over the cache. Returns the output."""
     B, d = x.shape
     H, D = cfg.num_heads, cfg.head_dim
     pos = cache.pos
@@ -378,9 +449,7 @@ def decode_step(w, cache: KVCache, x: torch.Tensor, cfg: FlowLMConfig,
         x = x + _linear(w.out_proj[l], None, attn.reshape(B, d))
         xn = layernorm(x, w.norm2_w[l], w.norm2_b[l], cfg.ln_eps)
         x = x + _linear(w.linear2[l], None, gelu_erf(_linear(w.linear1[l], None, xn)))
-    cache.cursor.add_(1 if live is None else live.to(torch.int32))
-    mirror = None if cache.cursor_host is None or live is not None else cache.cursor_host + 1
-    return dataclasses.replace(cache, cursor_host=mirror), x
+    return x
 
 
 # ---------------------------------------------------------------------------

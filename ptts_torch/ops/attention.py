@@ -85,16 +85,29 @@ def windowed_attention_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
 
 
 def decode_attention_masked(q: torch.Tensor, k_cache: torch.Tensor,
-                            v_cache: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+                            v_cache: torch.Tensor, mask: torch.Tensor,
+                            scale: Optional[float] = None) -> torch.Tensor:
     """Single-query attention over a KV cache with an explicit validity mask.
 
-    q: [B, H, D]; k_cache/v_cache: [B, Tmax, H, D]; mask: [B, Tmax] bool.
-    Returns [B, H, D]. Plain PyTorch, as the JAX package leaves it to XLA.
+    q: [B, H, D]; k_cache/v_cache: [B, Tmax, Hkv, D], where Hkv divides H and
+    KV head j serves query heads j*G .. j*G + G-1 (G = H / Hkv, grouped-query
+    attention; G = 1 is plain multi-head attention); mask: [B, Tmax] bool.
+    ``scale`` multiplies q.k (default 1/sqrt(D)). Returns [B, H, D]. Plain
+    PyTorch, as the JAX package leaves it to XLA.
     """
-    scores = torch.einsum("bhd,bthd->bht", q.float(), k_cache.float()) * _scale(q.shape[-1])
-    probs = _masked_softmax(scores, mask[:, None, :])
-    out = torch.einsum("bht,bthd->bhd", probs.to(v_cache.dtype).float(), v_cache.float())
-    return out.to(q.dtype)
+    scale = _scale(q.shape[-1]) if scale is None else scale
+    B, H, D = q.shape
+    Hkv = k_cache.shape[2]
+    if Hkv == H:
+        scores = torch.einsum("bhd,bthd->bht", q.float(), k_cache.float()) * scale
+        probs = _masked_softmax(scores, mask[:, None, :])
+        out = torch.einsum("bht,bthd->bhd", probs.to(v_cache.dtype).float(), v_cache.float())
+        return out.to(q.dtype)
+    qg = q.float().reshape(B, Hkv, H // Hkv, D)
+    scores = torch.einsum("bjgd,btjd->bjgt", qg, k_cache.float()).reshape(B, H, -1) * scale
+    probs = _masked_softmax(scores, mask[:, None, :]).reshape(B, Hkv, H // Hkv, -1)
+    out = torch.einsum("bjgt,btjd->bjgd", probs.to(v_cache.dtype).float(), v_cache.float())
+    return out.reshape(B, H, D).to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

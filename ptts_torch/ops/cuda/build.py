@@ -76,7 +76,7 @@ def library() -> ctypes.CDLL:
             lib.ptts_causal_attn_qkv.restype = I
             lib.ptts_window_attn_qkv.argtypes = [P] * 4 + [I] * 5 + [P]
             lib.ptts_window_attn_qkv.restype = I
-            lib.ptts_decode_attn.argtypes = [P] * 6 + [I] * 4 + [ctypes.c_float, I, P]
+            lib.ptts_decode_attn.argtypes = [P] * 6 + [I] * 5 + [ctypes.c_float, I, P]
             lib.ptts_decode_attn.restype = I
             lib.ptts_mark.argtypes = [I, P]
             lib.ptts_mark.restype = I

@@ -10,13 +10,17 @@ PyTorch version beside it:
   * decode_attention_masked (ops/attention.py) -- the plain version.
 
 The signature and the semantics are the plain version's: q [B, H, D],
-k_cache and v_cache [B, Tmax, H, D] (the cache's own tensors, in its dtype),
-mask [B, Tmax] bool (KVCache.valid_mask); returns [B, H, D] in q's dtype.
+k_cache and v_cache [B, Tmax, Hkv, D] (the cache's own tensors, in its
+dtype; Hkv = H for FlowLM, H / G for grouped-query attention with G = 2, 4
+or 8 query heads per KV head, which reads each KV head once for its G),
+mask [B, Tmax] bool (KVCache.valid_mask), an optional softmax ``scale``
+(1/sqrt(D) by default); returns [B, H, D] in q's dtype.
 Given a CPU tensor the wrapper computes the plain version; given a CUDA
 tensor it launches the kernel or raises -- there is no fallback from one
 to the other. It counts its calls that reach the kernel in
 ``decode_attention.launches`` and, per (dtype, B, Tmax), in the Counter
-``decode_attention.shapes``; a CUDA graph that captured a launch adds it
+``decode_attention.shapes`` (grouped launches under (dtype, B, Tmax, H, Hkv));
+a CUDA graph that captured a launch adds it
 again at each replay (runtime/graphs).
 """
 
@@ -24,6 +28,7 @@ from __future__ import annotations
 
 import collections
 import functools
+from typing import Optional
 
 import torch
 
@@ -32,6 +37,7 @@ from . import build
 from .fused_attention import _raise_on
 
 KERNEL_HEAD_DIM = 64      # the head dim the kernel is compiled for
+GROUPS = (1, 2, 4, 8)     # query heads per KV head the kernel is compiled for
 THREADS = 256             # threads per block; a row of H * D * size bytes must divide 16 * THREADS
 MAX_SPLIT_COLS = 1024     # columns one block can list: ceil(Tmax / splits) may not exceed it
 MIN_SPLIT_COLS = 32       # no split narrower than this many cache columns
@@ -63,15 +69,18 @@ def _check(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     if mask.dtype != torch.bool:
         raise TypeError(f"mask must be bool, got {mask.dtype}")
     if k_cache.dim() != 4 or q.dim() != 3:
-        raise ValueError(f"q must be [B, H, D] and the caches [B, Tmax, H, D], got "
+        raise ValueError(f"q must be [B, H, D] and the caches [B, Tmax, Hkv, D], got "
                          f"{list(q.shape)}, {list(k_cache.shape)}")
     B, Tmax, H, D = k_cache.shape
+    if q.shape[1] % H or q.shape[1] // H not in GROUPS:
+        raise ValueError(f"{q.shape[1]} query heads over {H} KV heads: the kernel takes "
+                         f"{GROUPS} query heads per KV head")
     if D != KERNEL_HEAD_DIM:
         raise ValueError(f"the kernel is built for head_dim {KERNEL_HEAD_DIM}, got {D}")
     if (16 * THREADS) % (H * D * q.element_size()):
         raise ValueError(f"{H} heads of {D} in {q.dtype}: a cache row must divide "
                          f"{16 * THREADS} bytes")
-    if (tuple(q.shape) != (B, H, D) or tuple(v_cache.shape) != tuple(k_cache.shape)
+    if (tuple(q.shape) != (B, q.shape[1], D) or tuple(v_cache.shape) != tuple(k_cache.shape)
             or tuple(mask.shape) != (B, Tmax)):
         raise ValueError(f"shapes q {list(q.shape)}, k_cache {list(k_cache.shape)}, v_cache "
                          f"{list(v_cache.shape)}, mask {list(mask.shape)} do not agree")
@@ -86,26 +95,30 @@ def _check(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     mask: torch.Tensor) -> torch.Tensor:
+                     mask: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
     """Single-query attention over a KV cache with an explicit validity mask
     (ops/attention.decode_attention_masked's contract). q [B, H, D];
-    k_cache/v_cache [B, Tmax, H, D]; mask [B, Tmax] bool. Returns [B, H, D]."""
+    k_cache/v_cache [B, Tmax, Hkv, D]; mask [B, Tmax] bool; ``scale``
+    (default 1/sqrt(D)). Returns [B, H, D]."""
     if q.device.type == "cpu":
-        return decode_attention_masked(q, k_cache, v_cache, mask)
+        return decode_attention_masked(q, k_cache, v_cache, mask, scale)
     _check(q, k_cache, v_cache, mask)
     B, Tmax, H, D = k_cache.shape
+    Hq = q.shape[1]
     splits = splits_for(B, Tmax, _sm_count(q.device.index))
     out = torch.empty_like(q)
-    part = torch.empty(B * splits * H * (2 + D) if splits > 1 else 1, dtype=torch.float32,
+    part = torch.empty(B * splits * Hq * (2 + D) if splits > 1 else 1, dtype=torch.float32,
                        device=q.device)
     with torch.cuda.device(q.device):
         rc = build.library().ptts_decode_attn(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), part.data_ptr(), B, Tmax, H, splits, _scale(D),
-            int(q.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+            out.data_ptr(), part.data_ptr(), B, Tmax, H, Hq // H, splits,
+            _scale(D) if scale is None else scale, int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "decode_attention")
     decode_attention.launches += 1
-    decode_attention.shapes[("bf16" if q.dtype == torch.bfloat16 else "f32", B, Tmax)] += 1
+    key = ("bf16" if q.dtype == torch.bfloat16 else "f32", B, Tmax)
+    decode_attention.shapes[key if Hq == H else key + (Hq, H)] += 1
     return out
 
 

@@ -3,7 +3,8 @@ device trace (ptts_torch/csrc/markers.cu).
 
 ``device_mark(FLOWLM, x)`` launches ``ptts_mark_flowlm`` on the current
 stream of ``x``'s device (``MIMI``: ``ptts_mark_mimi``, ``END``:
-``ptts_mark_end``); on a CPU tensor it does nothing. Inside a graph capture
+``ptts_mark_end``, ``SSM_IN``/``SSM_OUT``: ``ptts_mark_ssm_in``/``_out``); on
+a CPU tensor it does nothing. Inside a graph capture
 the launch becomes a node of the graph, so every replay carries it.
 """
 
@@ -13,8 +14,9 @@ import torch
 
 from . import build
 
-FLOWLM, MIMI, END = 0, 1, 2
-KERNELS = ("ptts_mark_flowlm", "ptts_mark_mimi", "ptts_mark_end")
+FLOWLM, MIMI, END, SSM_IN, SSM_OUT = 0, 1, 2, 3, 4
+KERNELS = ("ptts_mark_flowlm", "ptts_mark_mimi", "ptts_mark_end", "ptts_mark_ssm_in",
+           "ptts_mark_ssm_out")
 
 
 def device_mark(which: int, like: torch.Tensor) -> None:

@@ -5,6 +5,8 @@ E[x^2] - E[x]^2 clamped at 0, statistics in f32, output in the input dtype.
   * layernorm: biased variance (/d), eps inside the sqrt
   * kyutai_rmsnorm: centred variance with the d/(d-1) correction, but the
     output is the UNcentred x scaled by alpha/sqrt(var + eps)
+  * rmsnorm: the hybrid backbone's plain RMSNorm (models/hybrid.py; the
+    JAX package has no such backbone)
 """
 
 from __future__ import annotations
@@ -40,4 +42,14 @@ def kyutai_rmsnorm(x: torch.Tensor, alpha: Optional[torch.Tensor],
     y = xf * (1.0 / torch.sqrt(var + eps))
     if alpha is not None:
         y = y * alpha
+    return y.to(x.dtype)
+
+
+def rmsnorm(x: torch.Tensor, weight: Optional[torch.Tensor], eps: float = 1e-5) -> torch.Tensor:
+    """Plain RMSNorm (the hybrid backbone's): x / sqrt(mean(x^2) + eps) * weight,
+    statistics in f32, output in the input dtype."""
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    if weight is not None:
+        y = y * weight
     return y.to(x.dtype)

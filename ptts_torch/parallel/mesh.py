@@ -154,14 +154,18 @@ def gather_batch(parts: Sequence[torch.Tensor], batch_dim: int = 0,
 def shard_cache(mesh: Mesh, cache: KVCache) -> List[KVCache]:
     """One flowlm.KVCache per position: k/v [L, B, T, H, D] split at dim 1,
     prefix_len/start at dim 0; each position gets its own copy of the device
-    cursor on its device (the host t0 and cursor mirror are shared)."""
+    cursor on its device (the host t0 and cursor mirror are shared); a
+    hybrid's Mamba states split at dim 1 as k/v do."""
     k = shard_batch_array(mesh, cache.k, 1)
     v = shard_batch_array(mesh, cache.v, 1)
     plen = shard_batch_array(mesh, cache.prefix_len)
     start = shard_batch_array(mesh, cache.start)
+    n = len(mesh.device_list)
+    ssm, conv = ((shard_batch_array(mesh, t, 1) if t is not None else [None] * n)
+                 for t in (cache.ssm, cache.conv))
     return [KVCache(k=k[i], v=v[i], prefix_len=plen[i], start=start[i],
                     cursor=cache.cursor.to(d, copy=True), t0=cache.t0,
-                    cursor_host=cache.cursor_host)
+                    cursor_host=cache.cursor_host, ssm=ssm[i], conv=conv[i])
             for i, d in enumerate(mesh.device_list)]
 
 

@@ -271,10 +271,12 @@ def _admit_core(w, cache: flowlm.KVCache, x_all, eos_step, done, frame_idx, mimi
     shared ring cursor ``wc`` stay as they are: kpos = -1 masks every ring
     slot of a reused row until its own chunks land."""
     n, T0, _ = prefix.shape
-    k_new, v_new, last = flowlm.prefill_kv(w, prefix, lengths, cfg, attn_impl)
+    k_new, v_new, last, state = flowlm.prefill_state(w, prefix, lengths, cfg, attn_impl)
     rows = slot_ids.long()
     cache.k[:, :, :T0].index_copy_(1, rows, k_new.to(cache.k.dtype))
     cache.v[:, :, :T0].index_copy_(1, rows, v_new.to(cache.v.dtype))
+    # a hybrid backbone's Mamba states: a reused row's state is overwritten whole
+    flowlm.write_state(cache, rows, state)
     cache.prefix_len.index_copy_(0, rows, lengths.to(torch.int32))
     cache.start.index_copy_(0, rows, cache.cursor.expand(rows.shape[0]))
 

@@ -260,7 +260,7 @@ def decode_launch(device) -> Callable:
         with torch.cuda.device(device):
             rc = lib.ptts_decode_attn(
                 *(views[k].data_ptr() for k in ("q", "k", "v", "mask", "out", "part")), B, Tmax,
-                H, splits, _scale(HEAD_DIM), int(views["q"].dtype == torch.bfloat16),
+                H, 1, splits, _scale(HEAD_DIM), int(views["q"].dtype == torch.bfloat16),
                 torch.cuda.current_stream().cuda_stream)
         fa._raise_on(rc, "decode_attention")
     return launch

@@ -619,6 +619,30 @@ def test_decode_kernel_matches_plain_with_nan_in_masked_columns(dev, dtype, B, T
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_grouped_decode_kernel_matches_plain(dev, dtype, group):
+    """Grouped-query heads: 8 KV heads each serving ``group`` query heads
+    (the hybrid backbone's 32 over 8 at 4), at its softmax scale 1/64, on
+    the long cell's pool mask with NaN in the masked K/V columns: finite
+    and within the gates of the plain grouped version on the clean cache."""
+    from ptts_torch.ops import attention
+    from ptts_torch.ops.cuda import decode_attention as da
+
+    _, cache = decode_cache(dev, dtype, 256, 544, 160, seed=group)
+    mask = cache.valid_mask()
+    g = torch.Generator(device=dev).manual_seed(group)
+    q = torch.randn(256, 8 * group, 64, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(256, 544, 8, 64, generator=g, device=dev).to(dtype) for _ in range(2))
+    want = attention.decode_attention_masked(q, k, v, mask, 0.015625)
+    skip = (~mask & mask.any(dim=1, keepdim=True))[:, :, None, None]
+    got = da.decode_attention(q, k.masked_fill(skip, float("nan")),
+                              v.masked_fill(skip, float("nan")), mask, 0.015625)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and torch.isfinite(got).all()
+    assert within_decode_gates(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind", ["prefix_only", "one_column", "none"])
 def test_decode_kernel_single_stream_rows(dev, dtype, kind):
     """B = 1 (Context.stream; many splits of one stream) with its only row

@@ -96,7 +96,12 @@ def tiny_clis(monkeypatch):
 
 
 def test_sanitize_tiny_configs_are_the_tests():
-    assert dataclasses.asdict(tsan.TINY_FLOWLM) == dataclasses.asdict(TINY_FLOWLM)
+    # the port's FlowLMConfig also describes the hybrid backbone, which the
+    # tests' (the JAX package's) config has not: the fields in common agree
+    want = dataclasses.asdict(TINY_FLOWLM)
+    got = dataclasses.asdict(tsan.TINY_FLOWLM)
+    assert {k: v for k, v in got.items() if k in want} == want
+    assert not tsan.TINY_FLOWLM.layer_types
     assert dataclasses.asdict(tsan.TINY_MIMI) == dataclasses.asdict(TINY_MIMI)
 
 

@@ -313,7 +313,10 @@ def test_frame_body_marks_flowlm_mimi_end(ctx, monkeypatch, k):
 
 def test_markers_do_nothing_on_the_cpu():
     x = torch.zeros(2)
-    for which in (markers.FLOWLM, markers.MIMI, markers.END):
+    for which in (markers.FLOWLM, markers.MIMI, markers.END, markers.SSM_IN, markers.SSM_OUT):
         assert markers.device_mark(which, x) is None
-    assert markers.KERNELS == ("ptts_mark_flowlm", "ptts_mark_mimi", "ptts_mark_end")
+    assert markers.KERNELS == ("ptts_mark_flowlm", "ptts_mark_mimi", "ptts_mark_end",
+                               "ptts_mark_ssm_in", "ptts_mark_ssm_out")
+    # the benchmark pairs markers by prefix: no name may start another
+    assert not any(a != b and b.startswith(a) for a in markers.KERNELS for b in markers.KERNELS)
     assert np.all(x.numpy() == 0)
