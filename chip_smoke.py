@@ -14,7 +14,8 @@ and (c). Each phase's seconds are printed:
                 ptxas registers, shared memory and spills; where the toolkit
                 has cuobjdump, the HMMA (tensor-core) instructions of each
                 kernel, and a bf16 kernel without one fails (but the
-                decode attention's, a GEMV on the CUDA cores by design)
+                decode attention's and the Mamba-2 frame step's, on the
+                CUDA cores by design)
   3. kernels -- each CUDA kernel against its plain PyTorch version on the same
                 inputs at main-path shapes, f32 (gate 1e-4) and bf16 (5e-2),
                 max error relative to the largest reference value. At each
@@ -46,6 +47,23 @@ and (c). Each phase's seconds are printed:
                 share, the einsum's device time and library_ms:
                 scaled_dot_product_attention on the same q, cache views and
                 mask; runs right after phase 3
+  3e. ssm    -- the hybrid backbone's Mamba-2 frame step (ops/cuda/ssm_step).
+                First the hybrid's path: the configuration of granite4h-
+                serve-long at its own widths, built by benchmark/hybrid,
+                serves HYBRID_REQUESTS through that cell's batcher (256
+                slots, 8 frames a step, pipelined, graph replay); launch
+                counts set to 0 just before, 9 launches per pool frame,
+                replays included. Then the kernel against its plain version
+                at SSM_CASES (the pool of 257 rows, bf16 and f32, and one
+                row) and at every other (dtype, B, H) that path or a phase
+                launched, each launched shape with a case: the conv window
+                equal, the state and y within GATES; the call's device time
+                (CUDA events, median of 30, L2 flushed), the prologue's and
+                the state pass's (profiler), the bound (the state and the
+                conv window read and written once, xbc, dt, the weights read,
+                y written, at 3.35 TB/s) and share, the plain version's and
+                the three-pass yardstick's times (three_pass: the frame code
+                it replaced); runs right after phase 3d
   4. slice   -- a full-size synthetic checkpoint through ptts_torch.api:
                 generate("Hello world!") and a 4-prompt batch_generate; PCM
                 finite, frames_used * 1920 samples; both kernels launched
@@ -172,23 +190,27 @@ and (c). Each phase's seconds are printed:
                 = 1 and 8, serial and pipelined, at most 5 s a point, and
                 bench_batch_sweep at B = 16 and 32, 10 frames, 1 repeat --
                 each row printed with the card's name and power limit
-Launch counts (B1, B2 and the decode attention, each at every graph
-replay too) are set to 0 before each of phases 4, 6, 7, 12 (a) and (c)
-and 14 and read after; phase 13 sums them over its runs, phase 8 over its
-serving runs alone (B2 must stay at 0 there), phase 9 over its sharded
+Launch counts (B1, B2, the decode attention and the Mamba-2 frame step,
+each at every graph replay too) are set to 0 before each of phases 4, 6,
+7, 12 (a) and (c) and 14 and read after; phase 13 sums them over its
+runs, phase 8 over its serving runs alone (B2 must stay at 0 there),
+phase 9 over its sharded
 serving runs and the dry run alone, phase 10 over (a)'s plain run and
 over (b)-(c)'s runs, phase 11 over its bf16 runs (the f32 references
 excluded); phase 12 (b) reads the counts that the bench's own process and
 its HTTP leg's report. Every reset first keeps the shapes launched since
 the last one (SEEN): phases 3 and 3d read them. The decode attention must
-be launched on every path but phase 10's, and not there.
+be launched on every path but phase 10's, and not there. The frame step
+must be launched on phase 3e's hybrid path alone, and on no path of
+Pocket's.
 The int16 gates of phases 6 and 8 (c) let a clipping waveform fall back to
 its f32 view at 1e-3 of max (the random full-size PCM clips).
 Printed last: {"stream": ...}, {"serve": ...}, {"mesh": ...}, {"flags": ...},
 {"bf16": ...}, {"bench": ...}, {"graphs": ...}, {"tools": ...} and
 {"phase_s": ...} lines, then
 {"kernels": [...]} (each kernel's cases, one for each launched shape in
-each dtype), {"decode_kernel": [...]} (phase 3d's cases), then
+each dtype), {"decode_kernel": [...]} (phase 3d's cases), {"ssm_kernel":
+...} (phase 3e's cases and launches by path), then
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -197,6 +219,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import os
@@ -220,7 +243,9 @@ from ptts_torch.models import flowlm, mimi  # noqa: E402
 from ptts_torch.ops.cuda import build  # noqa: E402
 from ptts_torch.ops.cuda import decode_attention as da  # noqa: E402
 from ptts_torch.ops import rope  # noqa: E402
+from ptts_torch.ops.activations import silu  # noqa: E402
 from ptts_torch.ops.cuda import fused_attention as fa  # noqa: E402
+from ptts_torch.ops.cuda import ssm_step as ss  # noqa: E402
 from ptts_torch.parallel import mesh as pmesh  # noqa: E402
 from ptts_torch.runtime import server, streaming  # noqa: E402
 from ptts_torch.runtime.batching import ContinuousBatcher, Request  # noqa: E402
@@ -235,10 +260,11 @@ SOURCE = "ptts_torch/csrc/fused_attention.cu"
 PALLAS = "ptts_tpu/ops/pallas/fused_attention.py"
 GATES = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 FRAME_SAMPLES = 1920
-KERNELS = ("causal_attention_qkv", "window_attention_qkv", "decode_attention")
+KERNELS = ("causal_attention_qkv", "window_attention_qkv", "decode_attention", "ssm_step")
 WRAPPERS = {"causal_attention_qkv": fa.causal_attention_qkv,
             "window_attention_qkv": fa.window_attention_qkv,
-            "decode_attention": da.decode_attention}
+            "decode_attention": da.decode_attention, "ssm_step": ss.ssm_step}
+POCKET_KERNELS = KERNELS[:3]   # Pocket's paths launch these; ssm_step only the hybrid's
 PROMPTS = ["Hello world!", "The quick brown fox jumps over the lazy dog.", "One, two, three.",
            "This is a longer sentence about nothing in particular.", "Streaming speech.",
            "Eight streams advance in lockstep, one frame per step.", "Short.",
@@ -494,7 +520,8 @@ def phase_build() -> None:
         print("build: no cuobjdump in the toolkit; HMMA instructions not counted")
     for name, n in counts.items():
         print(f"  sass: {n} HMMA in {name}")
-        if ("bfloat16" in name or "bf16" in name) and "decode_attn" not in name:
+        if ("bfloat16" in name or "bf16" in name) and not any(
+                k in name for k in ("decode_attn", "ssm_prologue", "ssm_update")):
             check(n > 0, f"the bf16 kernel {name} has no HMMA instruction")
 
 
@@ -552,8 +579,8 @@ def phase_bench_offline(model_dir: str, device="cuda") -> dict:
     sync(device)
     seconds = time.perf_counter() - t0
     launches, shapes = read_launches(), read_shapes()
-    for name, count in launches.items():
-        check(count > 0, f"{name} was not launched on the bench's offline path")
+    for name in POCKET_KERNELS:
+        check(launches[name] > 0, f"{name} was not launched on the bench's offline path")
     print(f"bench (a): one pass of each offline mode at B={BENCH_BATCH}, "
           f"{BENCH_FRAMES} frames, bf16 in {seconds:.2f} s; launches {launches}; by shape "
           f"{shapes}")
@@ -803,6 +830,199 @@ def phase_decode(seen) -> list:
     return cases
 
 
+# The Mamba-2 frame step's cases, (dtype, pool rows) at 64 heads: granite4h-
+# serve-long's pool (256 slots and the trash row) in its served bf16 and in
+# f32, and one row.
+SSM_CASES = ((torch.bfloat16, 257), (torch.float32, 257), (torch.bfloat16, 1))
+HYBRID_CONFIG = "benchmark/configs/pocket-tts-granite4h-bf16.json"
+HYBRID_TRAFFIC = "benchmark/traffic/serve-long-saturated-granite4h.json"
+HYBRID_REQUESTS = (32, 64)   # requests served on phase 3e's hybrid path, frames each
+
+
+def ssm_inputs(dtype, B: int, H: int, seed: int, device="cuda") -> tuple:
+    """A Mamba layer's frame inputs at the kernel's P = 64, N = 128: the
+    input projection's output row zxbcdt [B, H*64 + C + H] (xbc_dt splits
+    it), a random state and conv window, and weights at Mamba-2's init
+    scales. Returns (zxbcdt, ssm, conv, params)."""
+    rng = np.random.default_rng(seed)
+    C = H * 64 + 256
+
+    def t(shape, lo=None, hi=None, scale=1.0):
+        x = rng.standard_normal(shape) * scale if lo is None else rng.uniform(lo, hi, shape)
+        return torch.from_numpy(x.astype(np.float32)).to(device, dtype)
+
+    params = (t((C, 4), -0.5, 0.5), t((C,), -0.5, 0.5), t((H,), -5, -1),
+              torch.log(t((H,), 1, 16)).to(dtype), torch.ones(H, device=device, dtype=dtype))
+    return t((B, H * 64 + C + H)), t((B, H, 64, 128), scale=0.5), t((B, 3, C)), params
+
+
+def xbc_dt(zxbcdt: torch.Tensor, H: int = 64) -> tuple:
+    """xbc and dt: views of the input projection's output, as
+    models/hybrid.mamba_step passes them."""
+    C = H * 64 + 256
+    return zxbcdt[:, H * 64:H * 64 + C], zxbcdt[:, H * 64 + C:]
+
+
+def three_pass(xbc, dt, ssm, conv, conv_w, conv_b, dt_bias, A_log, D):
+    """The yardstick: the frame step as the port computed it before its
+    kernel (models/hybrid.mamba_step's core), the decay and the update as
+    two in-place passes over the state, each rounding to its dtype, then
+    the read-out in the state's dtype."""
+    B, H, P, N = ssm.shape
+    window = torch.cat([conv, xbc[:, None].to(conv.dtype)], 1)
+    conv.copy_(window[:, 1:])
+    xc = silu((window.float() * conv_w.float().T).sum(1) + conv_b.float()).to(xbc.dtype)
+    xs, Bm, Cm = xc.float().split([H * P, N, N], dim=-1)
+    dt = torch.nn.functional.softplus(dt.float() + dt_bias.float())
+    dA = torch.exp(dt * -torch.exp(A_log.float()))
+    xs = xs.reshape(B, H, P)
+    sd = ssm.dtype
+    ssm.mul_(dA[:, :, None, None].to(sd))
+    ssm.addcmul_((xs * dt[..., None]).to(sd)[..., None], Bm.to(sd)[:, None, None, :])
+    y = torch.bmm(ssm.view(B, H * P, N), Cm.to(sd)[:, :, None])[..., 0].float()
+    return y + (D.float()[:, None] * xs).reshape(B, H * P)
+
+
+def ssm_bound_bytes(dtype, B: int, H: int) -> int:
+    """The least bytes of one frame step: the state [B, H, 64, 128] and the
+    conv window [B, 3, C] read and written once, xbc [B, C], dt [B, H] and
+    the layer's weights read, y [B, H*64] written in f32."""
+    e = torch.finfo(dtype).bits // 8
+    C = H * 64 + 256
+    return (2 * B * H * 64 * 128 + 2 * B * 3 * C + B * (C + H) + 5 * C + 3 * H) * e \
+        + B * H * 64 * 4
+
+
+def hybrid_path(seed: int = 2**31 + 977) -> dict:
+    """The hybrid's main path as granite4h-serve-long serves it: the
+    configuration at its own widths (10 layers, 9 of them Mamba layers of
+    64 heads; about 2 GB of bf16 weights) built by the benchmark's own
+    builder, the cell's batcher (serving.ServeRun: 256 slots, 8 frames a
+    step, pipelined, graph replay), HYBRID_REQUESTS' requests drained
+    through it. Launch counts are set to 0 just before the drain; every
+    shard step of k frames, eager, captured or replayed, must launch the
+    frame step 9k times, and each request return its frames of PCM.
+    Returns the launches, pool frames, captures, replays and the Counter of
+    shapes launched."""
+    from benchmark import hybrid as H, serving, system as S
+    from ptts_torch.runtime import graphs as rgraphs
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = H.expand(json.load(open(os.path.join(root, HYBRID_CONFIG))))
+    mix = json.load(open(os.path.join(root, HYBRID_TRAFFIC)))
+    t0 = time.perf_counter()
+    sysm = H.build(cfg, seed, "cuda", mix["voices"])
+    run = serving.ServeRun(sysm, mix, seed, 0.0, False)
+    b = run.b
+    check(sysm.engine.graphs, "ssm (hybrid path): the hybrid's card engine replays no graphs")
+    frames = [0]
+    shard_step = b._dispatch_shard
+
+    def counted(sh, k):
+        frames[0] += k
+        return shard_step(sh, k)
+
+    b._dispatch_shard = counted
+    n_req, n_frames = HYBRID_REQUESTS
+    for i in range(n_req):
+        run.enqueue(serving.request_spec(mix, cfg, seed, 0, i, n_frames,
+                                         S.DTYPES[cfg["dtype"]]), 0.0)
+    stats0 = dict(rgraphs.STATS)
+    reset_launches()
+    res = b.drain()
+    sync("cuda")
+    launches, shapes = read_launches(), collections.Counter(WRAPPERS["ssm_step"].shapes)
+    replays = rgraphs.STATS["replays"] - stats0["replays"]
+    captures = rgraphs.STATS["captures"] - stats0["captures"]
+    reset_launches()
+    fc = sysm.engine.flowlm_cfg
+    rows = sum(sh.rows for sh in b.shards)
+    check(len(res) == n_req, f"ssm (hybrid path): {len(res)} of {n_req} requests returned")
+    for rid, r in res.items():
+        check(r.frames == n_frames and r.pcm_i16.shape == (n_frames * FRAME_SAMPLES,),
+              f"ssm (hybrid path) rid {rid}: {r.frames} frames, PCM {r.pcm_i16.shape}")
+    check(len(fc.mamba_layers) == 9 and fc.mamba_heads == 64 and rows == 257,
+          f"ssm (hybrid path): {len(fc.mamba_layers)} Mamba layers of {fc.mamba_heads} heads "
+          f"over {rows} rows")
+    check(captures > 0 and replays > 0,
+          f"ssm (hybrid path): {captures} captures, {replays} replays")
+    check(launches["ssm_step"] == 9 * frames[0] > 0,
+          f"ssm (hybrid path): {launches['ssm_step']} frame-step launches in {frames[0]} pool "
+          f"frames of 9 Mamba layers")
+    print(f"ssm (hybrid path): {n_req} requests of {n_frames} frames through granite4h-serve-"
+          f"long's batcher at the configuration's widths in {time.perf_counter() - t0:.1f} s "
+          f"(build included): {frames[0]} pool frames, {captures} captures, {replays} "
+          f"replays; launches {launches}; frame step by shape {dict(shapes)}")
+    b._dispatch_shard = shard_step
+    del run, b, sysm, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches["ssm_step"], frames=frames[0], captures=captures,
+                replays=replays, shapes=shapes)
+
+
+def phase_ssm(seen) -> dict:
+    """Phase 3e: first the hybrid's path (hybrid_path); then the Mamba-2
+    frame step at SSM_CASES and at every other (dtype, B, H) that path or
+    ``seen`` launched, against its plain version; its times, bound and
+    share, the plain version's and the three-pass yardstick's times (the
+    profiler's split at SSM_CASES alone). Every shape the hybrid's path
+    launched must have a case."""
+    hybrid = hybrid_path()
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    tag = {v: k for k, v in dtypes.items()}
+    held = {(tag[d], B, 64) for d, B in SSM_CASES}
+    launched = set(seen) | set(hybrid["shapes"])
+    runs = ([(d, B, 64, True) for d, B in SSM_CASES]
+            + [(dtypes[d], B, H, False) for d, B, H in sorted(launched - held)])
+    cases = []
+    for dtype, B, H, main in runs:
+        what = f"ssm_step {tag[dtype]} B={B} H={H}"
+        zxbcdt, ssm, conv, params = ssm_inputs(dtype, B, H, seed=B + H)
+        xbc, dt = xbc_dt(zxbcdt, H)
+        s_plain, c_plain = ssm.clone(), conv.clone()
+        want = ss.ssm_step_plain(xbc, dt, s_plain, c_plain, *params)
+        got = ss.ssm_step(xbc, dt, ssm, conv, *params)
+        sync("cuda")
+        check(torch.equal(conv, c_plain), f"{what}: the conv window differs from the plain "
+              f"version's")
+        check(bool(torch.isfinite(got).all()), f"{what}: non-finite y")
+        _, rel_s = rel_err(ssm, s_plain)
+        abs_y, rel_y = rel_err(got, want)
+        check(rel_s <= GATES[dtype] and rel_y <= GATES[dtype],
+              f"{what}: state rel {rel_s:.3e}, y rel {rel_y:.3e} > {GATES[dtype]}")
+        nbytes = ssm_bound_bytes(dtype, B, H)
+        bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        call = lambda: ss.ssm_step(xbc, dt, ssm, conv, *params)  # noqa: E731
+        ms = call_device_ms(call)
+        update_ms = kernel_device_ms(call, "ssm_update_kernel") if main else None
+        prologue_ms = kernel_device_ms(call, "ssm_prologue_kernel") if main else None
+        plain_ms = call_device_ms(lambda: ss.ssm_step_plain(xbc, dt, s_plain, c_plain, *params))
+        three_ms = call_device_ms(lambda: three_pass(xbc, dt, s_plain, c_plain, *params))
+        state_bytes = 2 * B * H * 64 * 128 * (torch.finfo(dtype).bits // 8)
+        case = dict(dtype=tag[dtype], B=B, H=H, launched=(tag[dtype], B, H) in launched,
+                    ms=ms, update_ms=update_ms, prologue_ms=prologue_ms, host_us=host_us(call),
+                    bytes=nbytes, bound_ms=bound_ms, bound_by="bytes", share=bound_ms / ms,
+                    update_tb_s=(state_bytes / update_ms / 1e9) if main else None,
+                    plain_ms=plain_ms, three_pass_ms=three_ms, max_abs_err=abs_y,
+                    max_rel_err=rel_y, state_rel_err=rel_s)
+        print(f"{what}: state rel {rel_s:.3e}, y rel {rel_y:.3e}; call {ms:.4f} ms (events, "
+              f"median of 30, L2 flushed)"
+              + (f" = prologue {prologue_ms:.4f} + state pass {update_ms:.4f} ms (profiler; "
+                 f"the state pass at {case['update_tb_s']:.2f} TB/s)" if main else "")
+              + f"; wrapper host {case['host_us']:.1f} us/call; bound {bound_ms:.4f} ms by "
+              f"bytes ({nbytes / 1e6:.2f} MB), share {case['share']:.1%}; plain {plain_ms:.4f} "
+              f"ms, three-pass yardstick {three_ms:.4f} ms")
+        del zxbcdt, xbc, dt, ssm, conv, s_plain, c_plain, want, got
+        cases.append(case)
+    torch.cuda.empty_cache()
+    cased = {(c["dtype"], c["B"], c["H"]) for c in cases}
+    check(set(hybrid["shapes"]) <= cased, f"ssm_step: the hybrid's path launched at "
+          f"{sorted(set(hybrid['shapes']) - cased)} with no case in phase 3e")
+    hybrid["shapes"] = {f"{d} B={b} H={h}": n for (d, b, h), n in sorted(hybrid["shapes"].items())}
+    return dict(cases=cases, hybrid=hybrid)
+
+
 def phase_slice(model_dir: str):
     t0 = time.perf_counter()
     ctx = api.load_dir(model_dir, device="cuda")
@@ -835,8 +1055,8 @@ def phase_slice(model_dir: str):
         m = len(a.samples)
         check(m > 0 and m % FRAME_SAMPLES == 0, f"batch stream {i}: {m} samples")
         check(bool(np.isfinite(a.samples).all()), f"batch stream {i}: non-finite PCM")
-    for name, count in launches.items():
-        check(count > 0, f"{name} was not launched on the main path")
+    for name in POCKET_KERNELS:
+        check(launches[name] > 0, f"{name} was not launched on the main path")
     stats = GLOBAL_STATS.summary()
     print(f"slice: generate {1e3 * (t1 - t0):.1f} ms (first call), generate_full "
           f"{1e3 * (t2 - t1):.1f} ms, batch_generate(4) {1e3 * (t3 - t2):.1f} ms; "
@@ -1053,8 +1273,8 @@ def phase_cli(model_dir: str, gpu_ctx) -> dict:
             rc = cli.main(["-d", model_dir, "-p", text, "--device", "cuda", "--tokens", "--verify"])
         check(rc == 0 and out.getvalue().startswith("Tokens ("), f"cli --tokens --verify: {rc}")
     launches = read_launches()
-    for name, count in launches.items():
-        check(count > 0, f"{name} was not launched by the CLI modes")
+    for name in POCKET_KERNELS:
+        check(launches[name] > 0, f"{name} was not launched by the CLI modes")
     print(f"cli: --flow-test dumps {sizes} bytes, latents vs generate_full rel {rel:.3e}; "
           f"--mimi-wave {n} samples; --tokens --verify ok; launches {launches}")
     return launches
@@ -1489,7 +1709,7 @@ def phase_mesh(gpu_ctx, unsharded, measure: bool = True) -> dict:
     on_path(dryrun.dryrun_multichip, 4, "cuda")
     dry = read_launches()
     t_dry = time.perf_counter() - t0
-    check(all(dry[name] > 0 for name in KERNELS), f"mesh (e): dry-run launches {dry}")
+    check(all(dry[name] > 0 for name in POCKET_KERNELS), f"mesh (e): dry-run launches {dry}")
     fn, args = dryrun.entry("cuda")
     with torch.inference_mode():
         _, x, latent, eos = fn(*args)
@@ -2091,8 +2311,9 @@ def phase_bench(model_dir: str, smi: str) -> dict:
           f"bench: HTTP errors {d['http_stream_errors']} / {d['http_wav_errors']}")
     check(d["platform"] == "gpu" and d["device"]["name"] == card,
           f"bench: device {d['device']} on {d['platform']}, phase 1 read {card!r}")
-    for name, count in d["kernels"]["launches"].items():
-        check(count > 0, f"bench: {name} was not launched in the bench's process")
+    for name in POCKET_KERNELS:
+        check(d["kernels"]["launches"][name] > 0,
+              f"bench: {name} was not launched in the bench's process")
     # the shapes launched in the bench's process and in its HTTP leg's
     shapes = {name: parse_shapes(d["kernels"]["shapes"])[name]
               + parse_shapes(d["http_kernels"]["shapes"])[name] for name in KERNELS}
@@ -2219,8 +2440,8 @@ def phase_tools(model_dir: str, smi: str) -> dict:
     check(all(r["device"]["name"] == card.rsplit(",", 1)[0].strip()
               for r in batcher + offline[:2]), "sweeps: device name differs from phase 1's")
     launches, shapes = read_launches(), read_shapes()
-    for name, count in launches.items():
-        check(count > 0, f"{name} was not launched by the tools")
+    for name in POCKET_KERNELS:
+        check(launches[name] > 0, f"{name} was not launched by the tools")
     print(f"tools (c): batcher sweep {batcher_s:.1f} s, offline sweep {offline_s:.1f} s; "
           f"launches {launches}; by shape {shapes}")
     return dict(guarded=guarded, trap=trap, trap_bf16=trap_bf16, parity=parity,
@@ -2279,6 +2500,7 @@ def main() -> int:
     seen = {name: SEEN[name] + bench_run["shapes"][name] for name in KERNELS}
     results = timed("3 kernels", phase_kernels, seen)
     decode_cases = timed("3d decode", phase_decode, seen["decode_attention"])
+    ssm_run = timed("3e ssm", phase_ssm, seen["ssm_step"])
     by_path = {name: {"slice": launches[name], "stream": stream["launches"][name],
                       "cli": cli_launches[name], "serve": serve["launches"][name],
                       "mesh": mesh["launches"][name],
@@ -2345,6 +2567,12 @@ def main() -> int:
     held = {(c["dtype"], c["B"], c["T"]) for c in decode_cases}
     check(set(launched) <= held, f"decode_attention: launched at {sorted(set(launched) - held)} "
           f"with no case in phase 3d")
+    # the Mamba-2 frame step on phase 3e's hybrid path alone
+    ssm_paths = dict(by_path["ssm_step"], hybrid=ssm_run["hybrid"]["launches"])
+    print(json.dumps({"ssm_kernel": {"launches_by_path": ssm_paths,
+                                     "hybrid": ssm_run["hybrid"], "cases": ssm_run["cases"]}}))
+    for path, n in ssm_paths.items():
+        check((n > 0) == (path == "hybrid"), f"ssm_step launched {n} times on the {path} path")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

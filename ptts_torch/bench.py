@@ -65,6 +65,7 @@ from .io.safetensors import SafetensorsFile
 from .models import flowlm, mimi
 from .ops.cuda import decode_attention as da
 from .ops.cuda import fused_attention as fa
+from .ops.cuda import ssm_step as ss
 from .runtime.graphs import GraphCache
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -609,8 +610,10 @@ def run_http_leg() -> dict:
 
 def kernel_counts() -> dict:
     """Launches of each kernel in this process, by (dtype, B, T) (T is the
-    decode attention's Tmax), and the RoPE tables built (one per new T)."""
-    wrappers = (fa.causal_attention_qkv, fa.window_attention_qkv, da.decode_attention)
+    decode attention's Tmax, the Mamba-2 frame step's heads), and the RoPE
+    tables built (one per new T)."""
+    wrappers = (fa.causal_attention_qkv, fa.window_attention_qkv, da.decode_attention,
+                ss.ssm_step)
     return {"launches": {f.__name__: f.launches for f in wrappers},
             "shapes": {f.__name__: {f"{d} B={b} T={t}": n
                                     for (d, b, t), n in sorted(f.shapes.items())}

@@ -25,7 +25,7 @@ K/V in ``k``/``v`` [La, B, Tmax, Hkv, D], and for each Mamba layer its SSM
 state ``ssm`` [Lm, B, H, P, N] and its conv state ``conv`` [Lm, B,
 d_conv - 1, conv channels], the last inputs of the conv, both in the
 cache's dtype: a bf16 engine keeps a bf16 state (each frame's decay and
-update compute in float32 and round to bf16 as they are stored). The state
+update compute in float32 and round once to bf16 as they are stored). The state
 has no positions and no mask: a prefill writes each row's final state
 whole (flowlm.write_state), and a frame updates it in place.
 
@@ -34,11 +34,13 @@ chunks of ``mamba_chunk`` positions: within a chunk as a masked matrix
 product, across chunks by the chunk-end states. Padding positions past a
 prompt's length get dt = 0, which leaves the state as it was, so the final
 state of a back-padded row is its state at its own last position. The frame
-step runs the recurrence: the state decays and takes the outer product
-x B^T in place, and y contracts it with C. The attention layer's prompt
-pass is torch's SDPA (the B1 kernel applies RoPE, which this backbone has
-not), its frame the grouped decode attention kernel
-(ops/cuda/decode_attention).
+step runs the recurrence (ops/cuda/ssm_step: on the card a prologue kernel
+for the conv window and dt, then one pass that reads and writes each
+row's state once; on the CPU its plain version): the state decays and
+takes the outer product x B^T in place, and y contracts it with C. The
+attention layer's prompt pass is torch's SDPA (the B1 kernel applies RoPE,
+which this backbone has not), its frame the grouped decode attention
+kernel (ops/cuda/decode_attention).
 
 Tracing (utils/timing): each Mamba layer's prompt scan, and the write of
 the final states into the cache, are ``ptts.ssm_prefill`` spans; the
@@ -60,6 +62,7 @@ import torch.nn.functional as F
 from ..config import FlowLMConfig
 from ..ops.activations import silu
 from ..ops.cuda import markers
+from ..ops.cuda.ssm_step import ssm_step
 from ..ops.norms import rmsnorm
 from ..utils import timing
 
@@ -233,25 +236,10 @@ def mamba_step(mw, j: int, u: torch.Tensor, ssm: torch.Tensor, conv: torch.Tenso
     window and the SSM state of each stream (``conv`` [B, d_conv - 1, C],
     ``ssm`` [B, H, P, N]) advanced IN PLACE. ``live`` (0-d bool): when False
     both states keep their values."""
-    B = u.shape[0]
-    H, P, N = cfg.mamba_heads, cfg.mamba_head_dim, cfg.mamba_d_state
     z, xbc, dt = _split_in(cfg, _linear(mw.in_proj[j], u))
     markers.device_mark(markers.SSM_IN, u)
-    window = torch.cat([conv, xbc[:, None].to(conv.dtype)], 1)    # [B, K, C]
-    conv.copy_(window[:, 1:] if live is None else torch.where(live, window[:, 1:], conv))
-    xc = (window.float() * mw.conv_w[j].float().T).sum(1) + mw.conv_b[j].float()
-    xc = silu(xc).to(u.dtype)
-    xs, Bm, Cm = xc.float().split([H * P, N, N], dim=-1)
-    dt = F.softplus(dt.float() + mw.dt_bias[j].float())           # [B, H]
-    if live is not None:
-        dt = dt * live
-    dA = torch.exp(dt * -torch.exp(mw.A_log[j].float()))
-    xs = xs.reshape(B, H, P)
-    sd = ssm.dtype
-    ssm.mul_(dA[:, :, None, None].to(sd))
-    ssm.addcmul_((xs * dt[..., None]).to(sd)[..., None], Bm.to(sd)[:, None, None, :])
-    y = torch.bmm(ssm.view(B, H * P, N), Cm.to(sd)[:, :, None])[..., 0].float()
-    y = y + (mw.D[j].float()[:, None] * xs).reshape(B, H * P)
+    y = ssm_step(xbc, dt, ssm, conv, mw.conv_w[j], mw.conv_b[j], mw.dt_bias[j], mw.A_log[j],
+                 mw.D[j], live)
     y = _gate_norm(cfg, y, z, mw.norm_w[j], u.dtype)
     markers.device_mark(markers.SSM_OUT, u)
     return _linear(mw.out_proj[j], y)

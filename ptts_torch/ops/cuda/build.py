@@ -1,7 +1,7 @@
 """Build the hand-written CUDA kernels at first use and load them with ctypes.
 
 ``nvcc`` compiles ``ptts_torch/csrc/*.cu`` (the attention kernels, the
-decode attention and the trace markers) for sm_90a into one shared
+decode attention, the Mamba-2 frame step and the trace markers) for sm_90a into one shared
 library with a plain C interface (no PyTorch headers, so the build takes
 seconds). The library lands in the build directory of utils/compile_cache
 (default ``ptts_torch/_build/``; ``PTTS_COMPILE_CACHE`` moves it) under a
@@ -25,7 +25,7 @@ from ...utils.compile_cache import build_dir
 
 _PKG = Path(__file__).resolve().parents[2]
 SOURCES = (_PKG / "csrc" / "fused_attention.cu", _PKG / "csrc" / "decode_attention.cu",
-           _PKG / "csrc" / "markers.cu")
+           _PKG / "csrc" / "ssm_step.cu", _PKG / "csrc" / "markers.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -78,6 +78,8 @@ def library() -> ctypes.CDLL:
             lib.ptts_window_attn_qkv.restype = I
             lib.ptts_decode_attn.argtypes = [P] * 6 + [I] * 5 + [ctypes.c_float, I, P]
             lib.ptts_decode_attn.restype = I
+            lib.ptts_ssm_step.argtypes = [P, P, ctypes.c_longlong] + [P] * 10 + [I] * 3 + [P]
+            lib.ptts_ssm_step.restype = I
             lib.ptts_mark.argtypes = [I, P]
             lib.ptts_mark.restype = I
             lib.ptts_error_string.argtypes = [I]

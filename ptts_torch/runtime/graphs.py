@@ -55,7 +55,7 @@ from typing import Any, Callable, Dict, Hashable
 
 import torch
 
-from ..ops.cuda import decode_attention, fused_attention
+from ..ops.cuda import decode_attention, fused_attention, ssm_step
 from ..utils import timing
 
 # captures, their host seconds (capture_begin .. capture_end) and replays,
@@ -85,7 +85,7 @@ def _device(device) -> torch.device:
 
 # the kernel wrappers whose launch counters a replay advances
 _COUNTED = (fused_attention.causal_attention_qkv, fused_attention.window_attention_qkv,
-            decode_attention.decode_attention)
+            decode_attention.decode_attention, ssm_step.ssm_step)
 
 
 class _Entry:

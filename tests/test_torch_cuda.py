@@ -738,3 +738,152 @@ def test_decode_kernel_guarded_launch(dev, dtype, B, Tmax, splits):
     assert res["rel"] <= tsan.DECODE_GATES[dtype]
     assert dtype != torch.bfloat16 or res["rms"] <= tsan.DECODE_RMS_GATE
     assert da.decode_attention.launches == before   # a raw launch is not counted
+
+
+# -- the Mamba-2 frame step (ops/cuda/ssm_step) ---------------------------------
+
+
+@pytest.mark.parametrize("live", [None, True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 3, 257])
+def test_ssm_step_kernel_matches_plain(dev, dtype, B, live):
+    """The frame step's kernels against the plain version on the card, over
+    3 frames from the same state and window: the conv window equal; the
+    state within 1e-5 of max in f32, and in bf16 within 2^-6 of |s dA| +
+    |x dt B| (a conv output whose bf16 rounding flips moves x or B by one
+    ulp, up to 2^-7 of it, and the state's rounding may then flip too); y
+    within 1e-5 / 2^-7 of max. Not live: the state and the window
+    keep every bit."""
+    from chip_smoke import ssm_inputs, xbc_dt
+    from ptts_torch.ops.cuda import ssm_step as tss
+
+    zxbcdt, ssm, conv, params = ssm_inputs(dtype, B, 64, seed=B, device=dev)
+    flag = None if live is None else torch.tensor(live, device=dev)
+    s_plain, c_plain = ssm.clone(), conv.clone()
+    before = tss.ssm_step.launches
+    for frame in range(3):
+        s0, c0 = ssm.clone(), conv.clone()
+        x_f, dt_f = xbc_dt(zxbcdt * (1 + 0.1 * frame))
+        want = tss.ssm_step_plain(x_f, dt_f, s_plain, c_plain, *params, flag)
+        got = tss.ssm_step(x_f, dt_f, ssm, conv, *params, flag)
+        torch.cuda.synchronize()
+        assert torch.equal(conv, c_plain)
+        if live is False:
+            assert torch.equal(ssm.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                               s0.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+            assert torch.equal(conv, c0)
+        if dtype == torch.float32:
+            assert rel(ssm, s_plain) < 1e-5 and rel(got, want) < 1e-5
+        else:
+            H, P, N = ssm.shape[1:]
+            window = torch.cat([c0, x_f[:, None]], 1).float()
+            xc = (window * params[0].float().T).sum(1) + params[1].float()
+            xc = (xc * torch.sigmoid(xc)).to(dtype).float()
+            dtv = torch.nn.functional.softplus(dt_f.float() + params[2].float())
+            dA = torch.exp(dtv * -torch.exp(params[3].float()))
+            terms = ((s0.float() * dA[:, :, None, None]).abs()
+                     + ((xc[:, :H * P].reshape(B, H, P) * dtv[..., None])[..., None]
+                        * xc[:, None, None, H * P:H * P + N]).abs())
+            assert bool(((ssm.float() - s_plain.float()).abs() <= terms * 2.0 ** -6).all())
+            assert rel(got, want) < 2.0 ** -7
+        s_plain.copy_(ssm)
+    assert tss.ssm_step.launches == before + 3
+    assert tss.ssm_step.shapes[("bf16" if dtype == torch.bfloat16 else "f32", B, 64)] >= 3
+
+
+def test_ssm_step_kernel_refuses_what_it_cannot_take(dev):
+    """On the card the wrapper raises where the kernel cannot run: a state
+    of another head dim, a mixed dtype, a state that is not contiguous."""
+    from chip_smoke import ssm_inputs, xbc_dt
+    from ptts_torch.ops.cuda import ssm_step as tss
+
+    zxbcdt, ssm, conv, params = ssm_inputs(torch.bfloat16, 2, 64, seed=0, device=dev)
+    xbc, dt = xbc_dt(zxbcdt)
+    with pytest.raises(ValueError, match="P = 64"):
+        tss.ssm_step(xbc, dt, ssm.reshape(2, 64, 128, 64), conv, *params)
+    with pytest.raises(TypeError, match="state's dtype"):
+        tss.ssm_step(xbc.float(), dt, ssm, conv, *params)
+    with pytest.raises(ValueError, match="contiguous"):
+        tss.ssm_step(xbc, dt, ssm.transpose(2, 3).contiguous().transpose(2, 3), conv, *params)
+
+
+def hybrid_system(dev, dtype):
+    """The hybrid configuration's stack (layer_types[0:10]: 9 Mamba layers,
+    attention at index 5) at the kernels' Mamba widths (P = 64, N = 128)
+    and small others, on the card, through the benchmark's own builder."""
+    import json
+    import os
+
+    from benchmark import hybrid as H
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    c = json.load(open(os.path.join(repo, "benchmark", "configs",
+                                    "pocket-tts-granite4h-bf16.json")))
+    c.update(hidden_size=128, num_attention_heads=2, num_key_value_heads=1,
+             shared_intermediate_size=256, intermediate_size=256, mamba_n_heads=4,
+             mamba_chunk_size=16, vocab_size=64, num_hidden_layers=10,
+             dtype="bf16" if dtype == torch.bfloat16 else "f32",
+             flowlm=dict(c["flowlm"], latent_dim=8, flow_dim=32, flow_depth=2, time_freqs=8),
+             mimi=dict(latent_dim=8, d_model=128, num_heads=2, head_dim=64, num_layers=1,
+                       hidden=256, context=8, max_period=10000.0, ln_eps=1e-5,
+                       upsample_kernel=4, upsample_stride=2, n_filters=4, ratios=[2, 2],
+                       kernel_size=3, last_kernel_size=3, residual_kernel=3, compress=2))
+    c["assumed"] = dict(c["assumed"], voice_frames=4)
+    cfg = H.expand(c)
+    return H.build(cfg, 1234, dev, 1).engine
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hybrid_step_replayed_equals_eager(dev, dtype):
+    """The hybrid's decode_step (9 Mamba layers through the frame step's
+    kernels, the grouped decode attention) through runtime/graphs'
+    GraphCache -- 2 eager warm-up frames, then a capture and 8 replays --
+    against 10 eager frames on a copy of the cache, with ``live`` read on
+    the device (False at frames 4 and 8): outputs, SSM and conv states and
+    K/V bit-equal, and ssm_step.launches up by 9 a frame, replays
+    included."""
+    import dataclasses
+
+    from ptts_torch.models import flowlm
+    from ptts_torch.ops.cuda import ssm_step as tss
+    from ptts_torch.runtime.graphs import GraphCache
+
+    eng = hybrid_system(dev, dtype)
+    w, fc = eng.fw, eng.flowlm_cfg
+    assert len(fc.mamba_layers) == 9 and fc.mamba_head_dim == 64 and fc.mamba_d_state == 128
+    rng = np.random.default_rng(5)
+    B, Tmax, t0 = 8, 90, 80
+
+    def fresh():
+        cache = flowlm.make_cache(fc, B, Tmax, dtype, dev)
+        g = np.random.default_rng(6)
+        for t, scale in ((cache.k, 1.0), (cache.v, 1.0), (cache.ssm, 0.3), (cache.conv, 1.0)):
+            t.copy_(torch.from_numpy((g.standard_normal(tuple(t.shape)) * scale).astype(
+                np.float32)))
+        cache.prefix_len.copy_(torch.tensor([80, 33, 1, 0, 50, 80, 2, 70], dtype=torch.int32))
+        cache.start.copy_(torch.tensor([80, 80, 81, 82, 80, 84, 80, 87], dtype=torch.int32))
+        return dataclasses.replace(flowlm.seek(cache, t0, t0), cursor_host=None)
+
+    xs = [torch.from_numpy(rng.standard_normal((B, fc.d_model)).astype(np.float32)).to(dev, dtype)
+          for _ in range(10)]
+    lives = [True, True, True, False, True, True, True, False, True, True]
+    graphed, eager = fresh(), fresh()
+    x, live = torch.empty_like(xs[0]), torch.ones((), dtype=torch.bool, device=dev)
+    graphs = GraphCache()
+    with torch.inference_mode():
+        for step in range(10):
+            x.copy_(xs[step])
+            live.fill_(lives[step])
+            n = tss.ssm_step.launches
+            out = graphs.run(("hybrid",), dev, lambda: flowlm.decode_step(
+                w, graphed, x, fc, live=live)[1])
+            assert tss.ssm_step.launches == n + 9, step
+            _, want = flowlm.decode_step(w, eager, xs[step], fc,
+                                         live=torch.tensor(lives[step], device=dev))
+            torch.cuda.synchronize()
+            assert torch.equal(out, want), step
+    assert len(graphs) == 1
+    for a, b in ((graphed.ssm, eager.ssm), (graphed.conv, eager.conv), (graphed.k, eager.k),
+                 (graphed.v, eager.v)):
+        assert torch.equal(a, b)
+    assert int(graphed.cursor) == int(eager.cursor) == t0 + 8

@@ -25,9 +25,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from chip_smoke import three_pass  # noqa: E402
 from ptts_torch.models import flowlm, hybrid  # noqa: E402
 from ptts_torch.ops import attention as tattn  # noqa: E402
+from ptts_torch.ops.activations import silu  # noqa: E402
 from ptts_torch.ops.cuda import decode_attention as tda  # noqa: E402
+from ptts_torch.ops.cuda import ssm_step as tss  # noqa: E402
 from ptts_torch.runtime import batching  # noqa: E402
 from ptts_torch.runtime.batching import ContinuousBatcher, Request  # noqa: E402
 from test_torch_graphs import ReplayOnCPU  # noqa: E402
@@ -213,6 +216,135 @@ def test_offline_replayed_loop_equals_eager(system):
     (lat_e, fr_e, ssm_e), (lat_g, fr_g, ssm_g) = outs
     assert fr_e.tolist() == fr_g.tolist() == [11, 6]
     assert torch.equal(lat_e, lat_g) and torch.equal(ssm_e, ssm_g)
+
+
+# -- the Mamba-2 frame step ---------------------------------------------------------
+
+
+def step_inputs(B, H, P, N, dtype, seed):
+    """A Mamba layer's frame inputs: xbc and dt as views of one input
+    projection's output row (as mamba_step passes them), a random state and
+    conv window, and weights at Mamba-2's init scales."""
+    g = torch.Generator().manual_seed(seed)
+    C, K = H * P + 2 * N, 4
+    zxbcdt = torch.randn(B, H * P + C + H, generator=g).to(dtype)
+    xbc, dt = zxbcdt[:, H * P:H * P + C], zxbcdt[:, H * P + C:]
+    ssm = (torch.randn(B, H, P, N, generator=g) * 0.5).to(dtype)
+    conv = torch.randn(B, K - 1, C, generator=g).to(dtype)
+    params = ((torch.rand(C, K, generator=g) - 0.5).to(dtype),
+              (torch.rand(C, generator=g) - 0.5).to(dtype),
+              (torch.rand(H, generator=g) * 4 - 5).to(dtype),
+              torch.log(1 + 15 * torch.rand(H, generator=g)).to(dtype), torch.ones(H, dtype=dtype))
+    return xbc, dt, ssm, conv, params
+
+
+def update_terms(xbc, dt, ssm, conv, conv_w, conv_b, dt_bias, A_log, D):
+    """|s dA| + |x dt B| of each state element: the magnitudes that a frame's
+    update rounds."""
+    B, H, P, N = ssm.shape
+    window = torch.cat([conv, xbc[:, None]], 1)
+    xc = silu((window.float() * conv_w.float().T).sum(1) + conv_b.float()).to(xbc.dtype).float()
+    dt = torch.nn.functional.softplus(dt.float() + dt_bias.float())
+    dA = torch.exp(dt * -torch.exp(A_log.float()))
+    xdt = xc[:, :H * P].reshape(B, H, P) * dt[..., None]
+    return ((ssm.float() * dA[:, :, None, None]).abs()
+            + (xdt[..., None] * xc[:, None, None, H * P:H * P + N]).abs())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,P,N", [(3, 4, 16, 8), (2, 2, 64, 128)])
+def test_plain_step_equals_the_three_pass_code(dtype, B, H, P, N):
+    """The wrapper on CPU tensors (its plain version) against the code it
+    replaces, 4 frames, each from the same state: float32 to 1e-6 of max.
+    In bf16 the old code rounded the decayed state, x dt and B before it
+    rounded their sum, each by up to u = 2^-8 of its magnitude, where the
+    new one rounds the sum once: each state element within 4u of |s dA| +
+    |x dt B| (the old roundings and one; 2.9u read at these seeds), y
+    within 2^-7 of max (the old read-out ran in bf16); the conv windows
+    equal."""
+    xbc, dt, ssm, conv, params = step_inputs(B, H, P, N, dtype, seed=B * H)
+    s_old, c_old = ssm.clone(), conv.clone()
+    for frame in range(4):
+        x_f, dt_f = xbc * (1 + 0.1 * frame), dt - 0.2 * frame
+        terms = update_terms(x_f, dt_f, s_old, c_old, *params)
+        want = three_pass(x_f, dt_f, s_old, c_old, *params)
+        got = tss.ssm_step(x_f, dt_f, ssm, conv, *params)
+        assert torch.equal(conv, c_old)
+        if dtype == torch.float32:
+            assert rel(ssm, s_old) < 1e-6 and rel(got, want) < 1e-6
+        else:
+            assert bool(((ssm.float() - s_old.float()).abs() <= terms * 2.0 ** -6).all())
+            assert rel(got, want) < 2.0 ** -7
+        s_old.copy_(ssm)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_step_not_live_leaves_both_states_bit_identical(dtype):
+    """live False: the state and the conv window keep every bit, a NaN
+    included, and y reads the state as it was; live True is no live."""
+    xbc, dt, ssm, conv, params = step_inputs(2, 2, 64, 128, dtype, seed=7)
+    H, P, N = ssm.shape[1:]
+    ssm[0, 1, 3, 5] = float("nan")
+    s0, c0 = ssm.clone(), conv.clone()
+    y = tss.ssm_step(xbc, dt, ssm, conv, *params, live=torch.tensor(False))
+    assert torch.equal(ssm.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       s0.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+    assert torch.equal(conv, c0)
+    xc = silu((torch.cat([c0, xbc[:, None]], 1).float() * params[0].float().T).sum(1)
+              + params[1].float()).to(dtype).float()
+    want = (torch.einsum("bhpn,bn->bhp", s0.float(), xc[:, -N:]).reshape(2, H * P)
+            + params[4].float().repeat_interleave(P) * xc[:, :H * P])
+    assert torch.equal(y.isnan(), want.isnan()) and int(y.isnan().sum()) == 1
+    assert rel(y.nan_to_num(), want.nan_to_num()) < 1e-6
+    a, b = (step_inputs(2, 2, 64, 128, dtype, seed=8) for _ in range(2))
+    ya = tss.ssm_step(*a[:4], *a[4], live=torch.tensor(True))
+    yb = tss.ssm_step(*b[:4], *b[4])
+    assert torch.equal(ya, yb) and torch.equal(a[2], b[2]) and torch.equal(a[3], b[3])
+
+
+_META = dict(device="meta")
+
+
+def _refused(change):
+    """The kernel's inputs at the serving shapes on meta tensors, with one
+    thing changed."""
+    B, H, P, N, dt_ = 4, 64, 64, 128, torch.bfloat16
+    C = H * P + 2 * N
+    t = dict(ssm=(B, H, P, N), conv=(B, 3, C), conv_w=(C, 4), conv_b=(C,), dt_bias=(H,),
+             A_log=(H,), D=(H,))
+    t = {k: torch.empty(v, dtype=dt_, **_META) for k, v in t.items()}
+    zxbcdt = torch.empty(B, H * P + C + H, dtype=dt_, **_META)
+    t.update(xbc=zxbcdt[:, H * P:H * P + C], dt=zxbcdt[:, H * P + C:])
+    live = torch.empty((), dtype=torch.bool, **_META)
+    change(t)
+    params = tuple(t[k] for k in ("conv_w", "conv_b", "dt_bias", "A_log", "D"))
+    tss._check(t["xbc"], t["dt"], t["ssm"], t["conv"], params, live)
+
+
+def _state(shape, dtype=torch.bfloat16):
+    return lambda t: t.update(ssm=torch.empty(shape, dtype=dtype, **_META))
+
+
+@pytest.mark.parametrize("change,error,match", [
+    (lambda t: None, ValueError, "CUDA device"),
+    (_state((4, 64, 32, 128)), ValueError, "P = 64 and N = 128"),
+    (_state((4, 64, 64, 64)), ValueError, "P = 64 and N = 128"),
+    (lambda t: t.update({k: v.half() for k, v in t.items()}), TypeError, "float32 or bfloat16"),
+    (lambda t: t.update(D=t["D"].float()), TypeError, "state's dtype"),
+    (lambda t: t.update(ssm=torch.empty(4, 64, 128, 64, dtype=torch.bfloat16,
+                                        **_META).transpose(2, 3)), ValueError, "contiguous"),
+    (lambda t: t.update(dt=torch.empty(64, 4, dtype=torch.bfloat16, **_META).T), ValueError,
+     "unit stride"),
+    (lambda t: t.update(conv=torch.empty(4, 2, 4352, dtype=torch.bfloat16, **_META)),
+     ValueError, "conv taps"),
+], ids=["passes_the_checks", "head_dim", "d_state", "dtype", "mixed_dtype", "layout", "stride",
+        "taps"])
+def test_the_step_kernel_refuses_what_it_cannot_take(change, error, match):
+    """The wrapper's checks, on meta tensors (no card): the serving shapes
+    pass them all but the device's; a wrong P, N, dtype or layout is
+    refused before any launch."""
+    with pytest.raises(error, match=match):
+        _refused(change)
 
 
 # -- the grouped decode attention -------------------------------------------------
