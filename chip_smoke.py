@@ -260,11 +260,9 @@ SOURCE = "ptts_torch/csrc/fused_attention.cu"
 PALLAS = "ptts_tpu/ops/pallas/fused_attention.py"
 GATES = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 FRAME_SAMPLES = 1920
-KERNELS = ("causal_attention_qkv", "window_attention_qkv", "decode_attention", "ssm_step")
-WRAPPERS = {"causal_attention_qkv": fa.causal_attention_qkv,
-            "window_attention_qkv": fa.window_attention_qkv,
-            "decode_attention": da.decode_attention, "ssm_step": ss.ssm_step}
-POCKET_KERNELS = KERNELS[:3]   # Pocket's paths launch these; ssm_step only the hybrid's
+WRAPPERS = build.WRAPPERS     # every registered kernel wrapper, by name
+KERNELS = tuple(WRAPPERS)
+POCKET_KERNELS = tuple(n for n in KERNELS if n != "ssm_step")   # ssm_step: the hybrid's only
 PROMPTS = ["Hello world!", "The quick brown fox jumps over the lazy dog.", "One, two, three.",
            "This is a longer sentence about nothing in particular.", "Streaming speech.",
            "Eight streams advance in lockstep, one frame per step.", "Short.",
@@ -295,16 +293,11 @@ def reset_launches() -> None:
 
 
 def parse_shapes(by_name: dict) -> dict:
-    """{kernel: Counter {(dtype, B, T): launches}} of a read_shapes()-style
-    report ({kernel: {"dtype B=.. T=..": launches}}, as ptts_torch.bench
+    """{kernel: Counter {shape key: launches}} of a read_shapes()-style
+    report ({kernel: {build.shape_label: launches}}, as ptts_torch.bench
     prints it)."""
-    out = {}
-    for name, by_shape in by_name.items():
-        out[name] = collections.Counter()
-        for key, n in by_shape.items():
-            d, b, t = key.split()
-            out[name][(d, int(b[2:]), int(t[2:]))] += n
-    return out
+    return {name: collections.Counter({build.parse_shape_label(k): n for k, n in by.items()})
+            for name, by in by_name.items()}
 
 
 def read_launches() -> dict:
@@ -312,9 +305,8 @@ def read_launches() -> dict:
 
 
 def read_shapes() -> dict:
-    """{kernel: {"dtype B=.. T=..": launches}} since the last reset_launches()."""
-    return {name: {f"{d} B={b} T={t}": n
-                   for (d, b, t), n in sorted(WRAPPERS[name].shapes.items())}
+    """{kernel: {build.shape_label: launches}} since the last reset_launches()."""
+    return {name: {build.shape_label(k): n for k, n in sorted(WRAPPERS[name].shapes.items())}
             for name in KERNELS}
 
 
@@ -612,7 +604,8 @@ def phase_kernels(seen: dict) -> dict:
     the plain version's and the library call's times."""
     b1_cases, b2_cases = (
         cases + tuple(sorted({(b, t) for _, b, t in seen[name]} - set(cases)))
-        for name, cases in zip(KERNELS[:2], (B1_CASES, B2_CASES)))
+        for name, cases in (("causal_attention_qkv", B1_CASES),
+                            ("window_attention_qkv", B2_CASES)))
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1899,7 +1892,7 @@ def first_frames_rel(got: np.ndarray, want: np.ndarray) -> float:
 @contextlib.contextmanager
 def recorded_latents(out: list):
     """While active, every FlowLM frame of the streaming step
-    (streaming.flow_frame_step, which fused_stream_step(s) call) appends
+    (streaming.flow_frame_step, which fused_stream_steps calls) appends
     (frame index, pre-step done flags, raw latent [B, latent] in f32) to
     ``out``: the latents of a stream or a batcher run, which their PCM
     chunks do not show. A graph replay runs no Python: with graphs only the
@@ -2548,8 +2541,7 @@ def main() -> int:
             "library_computes": LIBRARY, "timed_shape": f"f32 B={top['B']} T={top['T']}",
             "max_rel_err_f32": max(c["max_rel_err"] for c in f32),
             "max_rel_err_bf16": max(c["max_rel_err"] for c in bf16),
-            "launched_shapes": {f"{d} B={b} T={t}": seen[name][(d, b, t)]
-                                for d, b, t in launched},
+            "launched_shapes": {build.shape_label(k): seen[name][k] for k in launched},
             "cases": cases,
         })
     print(json.dumps({"kernels": kernels}))
@@ -2558,8 +2550,8 @@ def main() -> int:
     decode_paths, launched = by_path["decode_attention"], sorted(seen["decode_attention"])
     print(json.dumps({"decode_kernel": {
         "launches_by_path": decode_paths,
-        "launched_shapes": {f"{d} B={b} T={t}": seen["decode_attention"][(d, b, t)]
-                            for d, b, t in launched},
+        "launched_shapes": {build.shape_label(k): seen["decode_attention"][k]
+                            for k in launched},
         "cases": decode_cases}}))
     for path, n in decode_paths.items():
         check((n == 0) == path.startswith("flags"), f"decode_attention launched {n} times on "

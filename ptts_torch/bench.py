@@ -63,9 +63,8 @@ from . import api, synth
 from .config import FlowLMConfig, KernelFlags, MimiConfig
 from .io.safetensors import SafetensorsFile
 from .models import flowlm, mimi
-from .ops.cuda import decode_attention as da
+from .ops.cuda import build
 from .ops.cuda import fused_attention as fa
-from .ops.cuda import ssm_step as ss
 from .runtime.graphs import GraphCache
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -373,7 +372,7 @@ def run_batcher_bench(slots: int, dtype_name: str, target_finished: int,
                       admit_chunk: int = 32, pipeline: bool = False,
                       max_len: int = 128, label: str = "",
                       split_admit=None, spec_admit: bool = False,
-                      pack_flags=None, stats_out: Optional[dict] = None,
+                      stats_out: Optional[dict] = None,
                       warmup_steps: int = 12, weights=None, *,
                       device="cuda", flowlm_cfg: Optional[FlowLMConfig] = None,
                       mimi_cfg: Optional[MimiConfig] = None):
@@ -401,7 +400,7 @@ def run_batcher_bench(slots: int, dtype_name: str, target_finished: int,
     b = ContinuousBatcher(eng, slots=slots, max_len=max_len, admit_chunk=admit_chunk,
                           prefix_budget=T0, max_num_steps=1, frames_per_step=frames_per_step,
                           collect_pcm=collect_pcm, pipeline=pipeline, split_admit=split_admit,
-                          spec_admit=spec_admit, pack_flags=pack_flags)
+                          spec_admit=spec_admit)
     rng = np.random.default_rng(0)
     vidx = b.register_voice("bench", voice_cond(rng, cfg.d_model))
     if vidx < 0:
@@ -609,15 +608,12 @@ def run_http_leg() -> dict:
 
 
 def kernel_counts() -> dict:
-    """Launches of each kernel in this process, by (dtype, B, T) (T is the
-    decode attention's Tmax, the Mamba-2 frame step's heads), and the RoPE
-    tables built (one per new T)."""
-    wrappers = (fa.causal_attention_qkv, fa.window_attention_qkv, da.decode_attention,
-                ss.ssm_step)
-    return {"launches": {f.__name__: f.launches for f in wrappers},
-            "shapes": {f.__name__: {f"{d} B={b} T={t}": n
-                                    for (d, b, t), n in sorted(f.shapes.items())}
-                       for f in wrappers},
+    """Launches of each registered kernel in this process, by shape_label
+    (T is the decode attention's Tmax, the Mamba-2 frame step's heads), and
+    the RoPE tables built (one per new T)."""
+    return {"launches": {name: f.launches for name, f in build.WRAPPERS.items()},
+            "shapes": {name: {build.shape_label(k): n for k, n in sorted(f.shapes.items())}
+                       for name, f in build.WRAPPERS.items()},
             "rope_tables_built": fa._rope_tables.cache_info().misses}
 
 

@@ -2,7 +2,7 @@
 // Plain C interface, loaded from Python with ctypes
 // (ptts_torch/ops/cuda/markers.py).
 //
-// The serving frame body (runtime/streaming.fused_stream_step(s)) launches
+// The serving frame body (runtime/streaming.fused_stream_steps) launches
 // ptts_mark_flowlm before its FlowLM frames, ptts_mark_mimi before the
 // streaming Mimi decode and ptts_mark_end at its end. Captured into a CUDA
 // graph they are nodes of it, so every replay of the step shows in a

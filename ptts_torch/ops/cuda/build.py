@@ -1,7 +1,7 @@
-"""Build the hand-written CUDA kernels at first use and load them with ctypes.
+"""Build the hand-written CUDA kernels at first use, load them with ctypes,
+and keep the registry of the port's kernel wrappers.
 
-``nvcc`` compiles ``ptts_torch/csrc/*.cu`` (the attention kernels, the
-decode attention, the Mamba-2 frame step and the trace markers) for sm_90a into one shared
+``nvcc`` compiles every ``ptts_torch/csrc/*.cu`` for sm_90a into one shared
 library with a plain C interface (no PyTorch headers, so the build takes
 seconds). The library lands in the build directory of utils/compile_cache
 (default ``ptts_torch/_build/``; ``PTTS_COMPILE_CACHE`` moves it) under a
@@ -9,28 +9,49 @@ name keyed by a hash of the sources and flags, so a changed source is always
 rebuilt and an unchanged one never is; nvcc's report (registers, shared
 memory and spills per kernel, from ``-Xptxas -v``) is kept beside it as
 ``<library>.log``.
+
+Each C entry point is declared once, by the module that calls it
+(``declare``, or ``kernel`` for a wrapper), and its signature is applied at
+its first use (``entry``). ``@kernel(symbol, argtypes)`` registers a wrapper
+in WRAPPERS under its name and gives it ``.launches`` (int) and ``.shapes``
+(a Counter of shape keys); the wrapper's body launches through ``launch``,
+which counts both. Everything that counts, resets or checks the kernels
+(runtime/graphs, tools/sanitize, the bench, chip_smoke) iterates WRAPPERS,
+so adding a kernel takes its ``csrc/<k>.cu`` and its ``ops/cuda/<k>.py``.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Callable, Optional
+
+import torch
 
 from ...utils.compile_cache import build_dir
 
 _PKG = Path(__file__).resolve().parents[2]
-SOURCES = (_PKG / "csrc" / "fused_attention.cu", _PKG / "csrc" / "decode_attention.cu",
-           _PKG / "csrc" / "ssm_step.cu", _PKG / "csrc" / "markers.cu")
+SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
+_entries: dict = {}
+
+# C symbol -> (argtypes, restype), declared by the module that calls it
+SIGNATURES: dict = {}
+# wrapper name -> the registered kernel wrapper
+WRAPPERS: dict = {}
+# set by tools/sanitize only: CHECK(name, outputs) after each eager call of a wrapper
+CHECK: Optional[Callable] = None
 
 
 def nvcc() -> str:
@@ -70,19 +91,77 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(library_path()))
-            P, I = ctypes.c_void_p, ctypes.c_int
-            lib.ptts_causal_attn_qkv.argtypes = [P] * 6 + [I] * 4 + [P]
-            lib.ptts_causal_attn_qkv.restype = I
-            lib.ptts_window_attn_qkv.argtypes = [P] * 4 + [I] * 5 + [P]
-            lib.ptts_window_attn_qkv.restype = I
-            lib.ptts_decode_attn.argtypes = [P] * 6 + [I] * 5 + [ctypes.c_float, I, P]
-            lib.ptts_decode_attn.restype = I
-            lib.ptts_ssm_step.argtypes = [P, P, ctypes.c_longlong] + [P] * 10 + [I] * 3 + [P]
-            lib.ptts_ssm_step.restype = I
-            lib.ptts_mark.argtypes = [I, P]
-            lib.ptts_mark.restype = I
-            lib.ptts_error_string.argtypes = [I]
-            lib.ptts_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = ctypes.CDLL(str(library_path()))
         return _lib
+
+
+def declare(symbol: str, argtypes: list, restype=ctypes.c_int) -> None:
+    """Declare the C entry point ``symbol``'s signature (applied at its first use)."""
+    if SIGNATURES.setdefault(symbol, (argtypes, restype)) != (argtypes, restype):
+        raise ValueError(f"{symbol} is already declared with another signature")
+
+
+def entry(symbol: str):
+    """The library's C entry point ``symbol``, its declared signature applied."""
+    fn = _entries.get(symbol)
+    if fn is None:
+        fn = getattr(library(), symbol)
+        fn.argtypes, fn.restype = SIGNATURES[symbol]
+        _entries[symbol] = fn
+    return fn
+
+
+declare("ptts_error_string", [ctypes.c_int], ctypes.c_char_p)
+
+
+def raise_on(rc: int, name: str) -> None:
+    """Raise naming ``name`` when a C entry point returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} ({entry('ptts_error_string')(rc).decode()})")
+
+
+def kernel(symbol: str, argtypes: list):
+    """Decorator: declare ``symbol`` (returning a cudaError_t) and register the
+    wrapper that launches it, with ``.launches``, ``.shapes`` and ``.symbol``;
+    CHECK, when set, sees the outputs of each call outside a graph capture."""
+    declare(symbol, argtypes)
+
+    def register(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kw):
+            out = fn(*args, **kw)
+            if CHECK is not None and not (torch.cuda.is_available()
+                                          and torch.cuda.is_current_stream_capturing()):
+                CHECK(fn.__name__, out)
+            return out
+
+        wrapper.symbol, wrapper.launches, wrapper.shapes = symbol, 0, collections.Counter()
+        WRAPPERS[fn.__name__] = wrapper
+        return wrapper
+    return register
+
+
+def launch(wrapper, shape: tuple, like: torch.Tensor, *args) -> None:
+    """Call ``wrapper``'s C entry point, inside ``like``'s device, with
+    ``args`` and then the two arguments every kernel entry point ends with:
+    is_bf16 (``like``'s dtype) and the device's current stream. Raise on a
+    CUDA error; count the launch on the wrapper, under the key (``like``'s
+    dtype, *shape)."""
+    bf16 = like.dtype == torch.bfloat16
+    with torch.cuda.device(like.device):
+        rc = entry(wrapper.symbol)(*args, int(bf16), torch.cuda.current_stream().cuda_stream)
+    raise_on(rc, wrapper.__name__)
+    wrapper.launches += 1
+    wrapper.shapes[("bf16" if bf16 else "f32",) + shape] += 1
+
+
+def shape_label(key: tuple) -> str:
+    """The label of a shape key: "bf16 B=256 T=544" for (dtype, B, T), with
+    " H=.. Hkv=.." after it for a grouped decode key (dtype, B, Tmax, H, Hkv)."""
+    return " ".join([key[0]] + [f"{n}={v}" for n, v in zip(("B", "T", "H", "Hkv"), key[1:])])
+
+
+def parse_shape_label(label: str) -> tuple:
+    """The shape key of a shape_label()."""
+    dtype, *fields = label.split()
+    return (dtype, *(int(f.split("=")[1]) for f in fields))

@@ -26,7 +26,7 @@ again at each replay (runtime/graphs).
 
 from __future__ import annotations
 
-import collections
+import ctypes
 import functools
 from typing import Optional
 
@@ -34,7 +34,6 @@ import torch
 
 from ..attention import _scale, decode_attention_masked
 from . import build
-from .fused_attention import _raise_on
 
 KERNEL_HEAD_DIM = 64      # the head dim the kernel is compiled for
 GROUPS = (1, 2, 4, 8)     # query heads per KV head the kernel is compiled for
@@ -94,6 +93,10 @@ def _check(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                          f"{[str(t.device) for t in tensors]}")
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+@build.kernel("ptts_decode_attn", [_P] * 6 + [_I] * 5 + [ctypes.c_float, _I, _P])
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      mask: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
     """Single-query attention over a KV cache with an explicit validity mask
@@ -109,18 +112,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     out = torch.empty_like(q)
     part = torch.empty(B * splits * Hq * (2 + D) if splits > 1 else 1, dtype=torch.float32,
                        device=q.device)
-    with torch.cuda.device(q.device):
-        rc = build.library().ptts_decode_attn(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), part.data_ptr(), B, Tmax, H, Hq // H, splits,
-            _scale(D) if scale is None else scale, int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "decode_attention")
-    decode_attention.launches += 1
-    key = ("bf16" if q.dtype == torch.bfloat16 else "f32", B, Tmax)
-    decode_attention.shapes[key if Hq == H else key + (Hq, H)] += 1
+    build.launch(decode_attention, (B, Tmax) if Hq == H else (B, Tmax, Hq, H), q, q.data_ptr(),
+                 k_cache.data_ptr(), v_cache.data_ptr(), mask.data_ptr(), out.data_ptr(),
+                 part.data_ptr(), B, Tmax, H, Hq // H, splits,
+                 _scale(D) if scale is None else scale)
     return out
-
-
-decode_attention.launches = 0
-decode_attention.shapes = collections.Counter()

@@ -13,12 +13,12 @@ Both take the projection in the halves RoPE layout
 A wrapper given a CPU tensor computes the plain version; given a CUDA tensor
 it launches its kernel or raises -- there is no fallback from one to the
 other. Each wrapper counts its kernel launches in ``<wrapper>.launches``
-and, per (dtype, B, T), in the Counter ``<wrapper>.shapes``.
+and, per (dtype, B, T), in the Counter ``<wrapper>.shapes`` (ops/cuda/build).
 """
 
 from __future__ import annotations
 
-import collections
+import ctypes
 import functools
 
 import numpy as np
@@ -30,6 +30,8 @@ from . import build
 
 KERNEL_HEAD_DIM = 64      # the head dim the kernels are compiled for
 LOCAL_ATTN_BLOCK = 256    # query block of the plain windowed version
+_P, _I = ctypes.c_void_p, ctypes.c_int
+build.declare("ptts_attr_calls", [])
 
 
 def _split_qkv(qkv: torch.Tensor, H: int, D: int):
@@ -90,16 +92,7 @@ def _check_qkv(qkv: torch.Tensor, num_heads: int, head_dim: int) -> None:
         raise ValueError("qkv must be contiguous")
 
 
-def _tag(dtype: torch.dtype) -> str:
-    return "bf16" if dtype == torch.bfloat16 else "f32"
-
-
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        msg = build.library().ptts_error_string(rc).decode()
-        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
-
-
+@build.kernel("ptts_causal_attn_qkv", [_P] * 6 + [_I] * 4 + [_P])
 def causal_attention_qkv(qkv: torch.Tensor, lengths: torch.Tensor, *, num_heads: int,
                          head_dim: int, max_period: float = 10000.0):
     """Full-causal attention with keys masked to t < lengths[b], RoPE inside.
@@ -118,21 +111,12 @@ def causal_attention_qkv(qkv: torch.Tensor, lengths: torch.Tensor, *, num_heads:
     cos, sin = _rope_tables(T, head_dim, float(max_period), qkv.device)
     out = torch.empty(B, T, num_heads * head_dim, dtype=qkv.dtype, device=qkv.device)
     k_rot = torch.empty_like(out)
-    with torch.cuda.device(qkv.device):
-        rc = build.library().ptts_causal_attn_qkv(
-            qkv.data_ptr(), lengths.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-            out.data_ptr(), k_rot.data_ptr(), B, T, num_heads,
-            int(qkv.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "causal_attention_qkv")
-    causal_attention_qkv.launches += 1
-    causal_attention_qkv.shapes[(_tag(qkv.dtype), B, T)] += 1
+    build.launch(causal_attention_qkv, (B, T), qkv, qkv.data_ptr(), lengths.data_ptr(),
+                 cos.data_ptr(), sin.data_ptr(), out.data_ptr(), k_rot.data_ptr(), B, T, num_heads)
     return out, k_rot
 
 
-causal_attention_qkv.launches = 0
-causal_attention_qkv.shapes = collections.Counter()
-
-
+@build.kernel("ptts_window_attn_qkv", [_P] * 4 + [_I] * 5 + [_P])
 def window_attention_qkv(qkv: torch.Tensor, *, num_heads: int, head_dim: int,
                          context: int, max_period: float = 10000.0) -> torch.Tensor:
     """Sliding-window causal attention (key k valid for query q iff
@@ -146,23 +130,13 @@ def window_attention_qkv(qkv: torch.Tensor, *, num_heads: int, head_dim: int,
     B, T, _ = qkv.shape
     cos, sin = _rope_tables(T, head_dim, float(max_period), qkv.device)
     out = torch.empty(B, T, num_heads * head_dim, dtype=qkv.dtype, device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        rc = build.library().ptts_window_attn_qkv(
-            qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(), B, T,
-            num_heads, context, int(qkv.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "window_attention_qkv")
-    window_attention_qkv.launches += 1
-    window_attention_qkv.shapes[(_tag(qkv.dtype), B, T)] += 1
+    build.launch(window_attention_qkv, (B, T), qkv, qkv.data_ptr(), cos.data_ptr(),
+                 sin.data_ptr(), out.data_ptr(), B, T, num_heads, context)
     return out
-
-
-window_attention_qkv.launches = 0
-window_attention_qkv.shapes = collections.Counter()
 
 
 def attribute_calls() -> int:
     """How many times the kernel library has raised a kernel's dynamic
     shared-memory limit in this process: once per kernel and device, so a
     launch at a shape already seen adds nothing."""
-    return build.library().ptts_attr_calls()
+    return build.entry("ptts_attr_calls")()

@@ -10,6 +10,8 @@ the launch becomes a node of the graph, so every replay carries it.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import build
@@ -17,6 +19,7 @@ from . import build
 FLOWLM, MIMI, END, SSM_IN, SSM_OUT = 0, 1, 2, 3, 4
 KERNELS = ("ptts_mark_flowlm", "ptts_mark_mimi", "ptts_mark_end", "ptts_mark_ssm_in",
            "ptts_mark_ssm_out")
+build.declare("ptts_mark", [ctypes.c_int, ctypes.c_void_p])
 
 
 def device_mark(which: int, like: torch.Tensor) -> None:
@@ -24,7 +27,5 @@ def device_mark(which: int, like: torch.Tensor) -> None:
     if like.device.type != "cuda":
         return
     with torch.cuda.device(like.device):
-        rc = build.library().ptts_mark(which, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        msg = build.library().ptts_error_string(rc).decode()
-        raise RuntimeError(f"{KERNELS[which]}: CUDA error {rc} ({msg})")
+        rc = build.entry("ptts_mark")(which, torch.cuda.current_stream().cuda_stream)
+    build.raise_on(rc, KERNELS[which])

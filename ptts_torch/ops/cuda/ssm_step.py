@@ -33,7 +33,7 @@ that captured a launch adds it again at each replay (runtime/graphs).
 
 from __future__ import annotations
 
-import collections
+import ctypes
 from typing import Optional
 
 import torch
@@ -41,7 +41,6 @@ import torch.nn.functional as F
 
 from ..activations import silu
 from . import build
-from .fused_attention import _raise_on, _tag
 
 KERNEL_HEAD_DIM = 64    # P, the head dim the kernels are compiled for
 KERNEL_D_STATE = 128    # N
@@ -107,6 +106,10 @@ def _check(xbc: torch.Tensor, dt: torch.Tensor, ssm: torch.Tensor, conv: torch.T
                          f"{sorted({str(t.device) for t in devices})}")
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+@build.kernel("ptts_ssm_step", [_P, _P, ctypes.c_longlong] + [_P] * 10 + [_I] * 3 + [_P])
 def ssm_step(xbc: torch.Tensor, dt: torch.Tensor, ssm: torch.Tensor, conv: torch.Tensor,
              conv_w: torch.Tensor, conv_b: torch.Tensor, dt_bias: torch.Tensor,
              A_log: torch.Tensor, D: torch.Tensor,
@@ -120,17 +123,7 @@ def ssm_step(xbc: torch.Tensor, dt: torch.Tensor, ssm: torch.Tensor, conv: torch
     B, H, P, _ = ssm.shape
     work = torch.empty(B, conv.shape[-1] + 2 * H, dtype=torch.float32, device=ssm.device)
     y = torch.empty(B, H * P, dtype=torch.float32, device=ssm.device)
-    with torch.cuda.device(ssm.device):
-        rc = build.library().ptts_ssm_step(
-            xbc.data_ptr(), dt.data_ptr(), xbc.stride(0), ssm.data_ptr(), conv.data_ptr(),
-            *(t.data_ptr() for t in params), None if live is None else live.data_ptr(),
-            work.data_ptr(), y.data_ptr(), B, H, int(ssm.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "ssm_step")
-    ssm_step.launches += 1
-    ssm_step.shapes[(_tag(ssm.dtype), B, H)] += 1
+    build.launch(ssm_step, (B, H), ssm, xbc.data_ptr(), dt.data_ptr(), xbc.stride(0),
+                 ssm.data_ptr(), conv.data_ptr(), *(t.data_ptr() for t in params),
+                 None if live is None else live.data_ptr(), work.data_ptr(), y.data_ptr(), B, H)
     return y
-
-
-ssm_step.launches = 0
-ssm_step.shapes = collections.Counter()

@@ -86,7 +86,7 @@ from ..rng import frame_noise
 from ..text import estimate_frames, prepare_text
 from ..utils.timing import count, event, span
 from .graphs import GraphCache
-from .streaming import fused_stream_step, fused_stream_steps
+from .streaming import fused_stream_steps
 
 # shared zero-length chunk: device-bound collection appends one as a
 # "stream started" marker (PCM stays on the device; see _collect_counts)
@@ -95,9 +95,9 @@ _EMPTY_I16.setflags(write=False)
 
 
 def _combine_flags(wd: torch.Tensor, done: torch.Tensor) -> torch.Tensor:
-    """[k, B] or [B] was_done + [B] done -> one [k+1, B] bool buffer, so the
+    """[k, B] was_done + [B] done -> one [k+1, B] bool buffer, so the
     device-bound loop reads back one tiny array per step instead of two."""
-    return torch.cat([wd.reshape(-1, done.shape[0]), done[None]])
+    return torch.cat([wd, done[None]])
 
 
 class _PinnedPool:
@@ -474,8 +474,7 @@ class ContinuousBatcher:
                  device_noise: bool = True,
                  split_admit: Optional[bool] = None,
                  max_queue: int = 0,
-                 spec_admit: bool = False,
-                 pack_flags: Optional[bool] = None):
+                 spec_admit: bool = False):
         # max_queue bounds the admission queue (0 = unbounded): enqueue()
         # raises QueueFull past it, which the server answers with HTTP 429
         self.max_queue = int(max_queue)
@@ -495,11 +494,6 @@ class ContinuousBatcher:
         # collect_pcm=False keeps the PCM on the device and reads back only
         # the done/was_done flags; Results carry frame counts, empty PCM
         self.collect_pcm = collect_pcm
-        # pack_flags (default: on whenever PCM is collected): the step
-        # appends the done/was_done flags to the int16 PCM as two columns,
-        # so one copy carries the chunks and the liveness
-        self.pack_flags = (bool(collect_pcm) if pack_flags is None
-                           else bool(pack_flags and collect_pcm))
         # device_noise: seed=-1 requests draw their noise tables on the
         # device at admission; explicit seeds take the host parity path so
         # fixed-seed results match the offline engine
@@ -1212,30 +1206,16 @@ class ContinuousBatcher:
         mcfg = self.engine.mimi_cfg
         # per-slot params written at admission; "EOS disabled" is 1e30
         eos_threshold, eos_min_frames, eos_after, max_frames, num_steps = sh.params_dev
-        if k == 1:
-            # the device's pre-step done: a chunk is live iff not done pre-step
-            wd = None if self.pack_flags else sh.done.clone()
-            (_, _, x, pcm, _, eos_step, done) = fused_stream_step(
-                sh.fw, sh.mw, sh.cache, sh.mimi_state, sh.x, sh.noise_tab, sh.time_embs,
-                sh.frame_idx, sh.eos_step, sh.done, self.cfg, mcfg, True, eos_threshold,
-                eos_min_frames, eos_after, max_frames, num_steps, emit_i16=True,
-                pack_flags=self.pack_flags, flags=self.engine.flags)
-            frame_idx = sh.frame_idx + 1
-        else:
-            (_, _, x, pcm, _, eos_step, done, wd, frame_idx) = fused_stream_steps(
-                sh.fw, sh.mw, sh.cache, sh.mimi_state, sh.x, sh.noise_tab, sh.time_embs,
-                sh.frame_idx, sh.eos_step, sh.done, self.cfg, mcfg, True, eos_threshold,
-                eos_min_frames, eos_after, max_frames, num_steps, k=k, emit_i16=True,
-                pack_flags=self.pack_flags, flags=self.engine.flags)
-            # pcm [k, B, S(+2)]; wd [k, B] per-frame pre-step done
+        # pcm [k, B, S + 2]: int16 chunks with the flag columns; wd [k, B]
+        # the per-frame pre-step done (a chunk is live iff not done pre-step)
+        (_, _, x, pcm, _, eos_step, done, wd, frame_idx) = fused_stream_steps(
+            sh.fw, sh.mw, sh.cache, sh.mimi_state, sh.x, sh.noise_tab, sh.time_embs,
+            sh.frame_idx, sh.eos_step, sh.done, self.cfg, mcfg, True, eos_threshold,
+            eos_min_frames, eos_after, max_frames, num_steps, k=k, flags=self.engine.flags)
         for dst, src in ((sh.x, x), (sh.eos_step, eos_step), (sh.done, done),
                          (sh.frame_idx, frame_idx)):
             dst.copy_(src)
-        if not self.collect_pcm:
-            return (_combine_flags(wd, done),)
-        if self.pack_flags:
-            return (pcm,)
-        return (pcm, done, wd)
+        return (pcm,) if self.collect_pcm else (_combine_flags(wd, done),)
 
     def _read_step(self, rbs) -> List[np.ndarray]:
         """Wait for one step's readbacks, shard by shard; the host arrays
@@ -1303,17 +1283,10 @@ class ContinuousBatcher:
             done_np = fl[-1]                               # [B] post-step
         else:
             self.phase_s["c_pcm"] = self.phase_s.get("c_pcm", 0.0) + (t_pcm - t0)
-            if self.pack_flags:
-                raw = host[0] if host[0].ndim == 3 else host[0][None]
-                pcm_np = raw[:, :, :-2]
-                was_done = raw[:, :, -2] != 0              # [k, B]
-                done_np = raw[-1, :, -1] != 0              # [B] post-step
-            else:
-                pcm_np, done_np, was_done = host
-                if pcm_np.ndim == 2:  # single-frame dispatch
-                    pcm_np = pcm_np[None]
-                if was_done.ndim == 1:
-                    was_done = was_done[None]
+            raw = host[0]                                  # [k, B, S + 2]
+            pcm_np = raw[:, :, :-2]
+            was_done = raw[:, :, -2] != 0                  # [k, B]
+            done_np = raw[-1, :, -1] != 0                  # [B] post-step
         # slots admitted AFTER this step was dispatched keep their mirror
         # (the step predates them); the trash row is never live on the host
         fresh = self._admit_seq > seq

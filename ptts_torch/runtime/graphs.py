@@ -34,11 +34,11 @@ graph: it must be in the key or be read from a device buffer that the
 caller refills before the replay.
 
 Counts that a body makes while it is captured (the tracer's
-``utils/timing.count`` and the kernel wrappers' ``.launches`` and
-``.shapes``) are held back and added again at each replay, so they count
-the body's executions, as an eager body's do. Each capture and each replay
-is a span (``ptts.graph.capture``, ``ptts.graph.replay``, with the key's
-first element).
+``utils/timing.count`` and the ``.launches`` and ``.shapes`` of every
+kernel wrapper in ops/cuda/build.WRAPPERS) are held back and added again
+at each replay, so they count the body's executions, as an eager body's
+do. Each capture and each replay is a span (``ptts.graph.capture``,
+``ptts.graph.replay``, with the key's first element).
 
 Capture runs in ``capture_error_mode="thread_local"``: the server's handler
 threads may write the device (a voice bank row) while the serving thread
@@ -55,7 +55,7 @@ from typing import Any, Callable, Dict, Hashable
 
 import torch
 
-from ..ops.cuda import decode_attention, fused_attention, ssm_step
+from ..ops.cuda import build
 from ..utils import timing
 
 # captures, their host seconds (capture_begin .. capture_end) and replays,
@@ -83,11 +83,6 @@ def _device(device) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device() if dev.index is None else dev.index)
 
 
-# the kernel wrappers whose launch counters a replay advances
-_COUNTED = (fused_attention.causal_attention_qkv, fused_attention.window_attention_qkv,
-            decode_attention.decode_attention, ssm_step.ssm_step)
-
-
 class _Entry:
     __slots__ = ("calls", "graph", "outputs", "counts", "launches")
 
@@ -100,7 +95,8 @@ class _Entry:
 
 
 def _launch_counts() -> list:
-    return [(fn, fn.launches, collections.Counter(fn.shapes)) for fn in _COUNTED]
+    return [(fn, fn.launches, collections.Counter(fn.shapes))
+            for fn in build.WRAPPERS.values()]
 
 
 def _held_launches(before: list) -> tuple:

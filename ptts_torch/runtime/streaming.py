@@ -7,7 +7,8 @@ streams:
         play(chunk)
 
 Each step runs one FlowLM frame and one streaming-Mimi chunk on the
-engine's device (fused_stream_step) and quantizes the chunk to int16 there.
+engine's device (fused_stream_steps at k = 1, the body the continuous
+batcher runs at every k) and quantizes the chunk to int16 there.
 The session's per-frame host work is one launch sequence and one readback:
 the noise table is uploaded once at start and each frame's row is gathered
 on the device at the frame index, a device counter (as are the KV and Mimi
@@ -80,55 +81,29 @@ def _noise_rows(noise_tab: torch.Tensor, frame_idx) -> torch.Tensor:
 def _pack(pcm: torch.Tensor, was_done: torch.Tensor, done: torch.Tensor) -> torch.Tensor:
     """Append the int16 flag columns [..., S] = was_done, [..., S+1] = done,
     so one copy carries the PCM and the step's liveness."""
-    if pcm.dtype != torch.int16:
-        raise ValueError("pack_flags needs int16 PCM (emit_i16=True)")
     flags = torch.stack([was_done.to(torch.int16), done.to(torch.int16)], dim=-1)
     return torch.cat([pcm, flags], dim=-1)
-
-
-def fused_stream_step(fw, mw, cache: flowlm.KVCache, mimi_state, x: torch.Tensor,
-                      noise: torch.Tensor, time_embs: torch.Tensor, frame_idx,
-                      eos_step: torch.Tensor, done: torch.Tensor, cfg: FlowLMConfig, mcfg,
-                      eos_enabled: bool, eos_threshold, eos_min_frames,
-                      eos_after: torch.Tensor, max_frames: Optional[torch.Tensor] = None,
-                      num_steps: Optional[torch.Tensor] = None, emit_i16: bool = False,
-                      pack_flags: bool = False, flags: KernelFlags = flowlm.DEFAULT_FLAGS):
-    """One serving frame: flow_frame_step, then one streaming-Mimi chunk.
-
-    ``noise`` is a [B, latent] row or the whole [B, F, latent] table, whose
-    row for ``frame_idx`` is gathered on the device. ``emit_i16`` returns
-    int16 PCM (quantize_i16_device); ``pack_flags`` (int16 only) appends the
-    pre-step and post-step done flags as two columns. Returns (cache,
-    mimi_state, x, pcm [B, S] or [B, S + 2], eos, eos_step, done)."""
-    markers.device_mark(markers.FLOWLM, x)
-    if noise.dim() == 3:
-        noise = _noise_rows(noise, frame_idx)
-    was_done = done
-    cache, x, scaled, eos, eos_step, done = flow_frame_step(
-        fw, cache, x, noise, time_embs, frame_idx, eos_step, done, cfg, eos_enabled,
-        eos_threshold, eos_min_frames, eos_after, max_frames, num_steps, flags)
-    markers.device_mark(markers.MIMI, x)
-    mimi_state, pcm = mimi_stream.decode_stream(mw, mimi_state, scaled[:, None, :], mcfg)
-    if emit_i16:
-        pcm = quantize_i16_device(pcm)
-    if pack_flags:
-        pcm = _pack(pcm, was_done, done)
-    markers.device_mark(markers.END, x)
-    return cache, mimi_state, x, pcm, eos, eos_step, done
 
 
 def fused_stream_steps(fw, mw, cache: flowlm.KVCache, mimi_state, x: torch.Tensor,
                        noise_tab: torch.Tensor, time_embs: torch.Tensor, frame_idx,
                        eos_step: torch.Tensor, done: torch.Tensor, cfg: FlowLMConfig, mcfg,
                        eos_enabled: bool, eos_threshold, eos_min_frames,
-                       eos_after: torch.Tensor, max_frames: torch.Tensor,
-                       num_steps: Optional[torch.Tensor], k: int, emit_i16: bool = True,
-                       pack_flags: bool = False, flags: KernelFlags = flowlm.DEFAULT_FLAGS):
-    """k serving frames: k FlowLM frames, then ONE decode_stream over all k
-    latents (Mimi does not feed back into FlowLM, and a k-frame chunk equals
-    k one-frame chunks). Returns (cache, mimi_state, x, pcm [k, B, S], eos
-    [k, B], eos_step, done, was_done [k, B], frame_idx): chunk j of stream b
-    is live iff not was_done[j, b]."""
+                       eos_after: torch.Tensor, max_frames: Optional[torch.Tensor] = None,
+                       num_steps: Optional[torch.Tensor] = None, k: int = 1,
+                       emit_i16: bool = True, flags: KernelFlags = flowlm.DEFAULT_FLAGS):
+    """k serving frames: k FlowLM frames (flow_frame_step, each frame's
+    noise row gathered from the [B, F, latent] ``noise_tab`` at its index),
+    then ONE decode_stream over all k latents (Mimi does not feed back into
+    FlowLM, and a k-frame chunk equals k one-frame chunks).
+
+    ``emit_i16`` quantizes the PCM to int16 on the device
+    (quantize_i16_device) and appends two flag columns to each chunk: the
+    frame's pre-step done and the post-step done of the last frame, so one
+    copy carries the chunks and the liveness; else the PCM stays float, with
+    no flag columns. Returns (cache, mimi_state, x, pcm [k, B, S + 2] or [k,
+    B, S], eos [k, B], eos_step, done, was_done [k, B], frame_idx): chunk j
+    of stream b is live iff not was_done[j, b]."""
     markers.device_mark(markers.FLOWLM, x)
     scaled_k, eos_k, wd_k = [], [], []
     for _ in range(k):
@@ -146,9 +121,7 @@ def fused_stream_steps(fw, mw, cache: flowlm.KVCache, mimi_state, x: torch.Tenso
     pcm_k = pcm.reshape(B, k, -1).transpose(0, 1)                # [k, B, S]
     wd_k = torch.stack(wd_k)
     if emit_i16:
-        pcm_k = quantize_i16_device(pcm_k)
-    if pack_flags:
-        pcm_k = _pack(pcm_k, wd_k, done.expand_as(wd_k))
+        pcm_k = _pack(quantize_i16_device(pcm_k), wd_k, done.expand_as(wd_k))
     markers.device_mark(markers.END, x)
     return (cache, mimi_state, x, pcm_k, torch.stack(eos_k), eos_step, done, wd_k,
             frame_idx)
@@ -274,18 +247,16 @@ class StreamingSession:
         """One frame, the session's state updated in place; returns the
         packed int16 chunk and the f32 EOS logits to read back."""
         engine = self.engine
-        cache, _, x, pcm, eos, eos_step, done = fused_stream_step(
+        cache, _, x, pcm, eos, eos_step, done, _, frame_idx = fused_stream_steps(
             engine.fw, engine.mw, self.cache, self.mimi_state, self.x, self._noise_dev,
             self.time_embs, self._frame_dev, self.eos_step, self.done, self.cfg,
             engine.mimi_cfg, bool(self.params.eos_enabled), self.params.eos_threshold,
-            self.params.eos_min_frames, self.eos_after, self.frames_each,
-            emit_i16=True, pack_flags=True, flags=engine.flags)
+            self.params.eos_min_frames, self.eos_after, self.frames_each, flags=engine.flags)
         self.cache = cache  # the same tensors; the eager path's cursor mirror advanced
-        self.x.copy_(x)
-        self.eos_step.copy_(eos_step)
-        self.done.copy_(done)
-        self._frame_dev.add_(1)
-        return pcm, eos.float()
+        for dst, src in ((self.x, x), (self.eos_step, eos_step), (self.done, done),
+                         (self._frame_dev, frame_idx)):
+            dst.copy_(src)
+        return pcm[0], eos[0].float()
 
     @torch.inference_mode()
     def _dispatch(self) -> None:

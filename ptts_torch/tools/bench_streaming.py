@@ -2,7 +2,7 @@
 cost (port of tools/bench_streaming.py).
 
 Measures the serving path of B lockstep streams: prefill, then one
-runtime/streaming.fused_stream_step per frame (FlowLM frame + one
+runtime/streaming.fused_stream_steps per frame (k = 1: FlowLM frame + one
 streaming-Mimi chunk), to the first PCM chunk landed on the host (where
 audio could be shipped to a client). The steady per-frame cost is the
 slope between two frame counts, each ended by a fence (synchronize, then a
@@ -32,7 +32,7 @@ import torch
 from ..bench import DTYPES, configs, device_info, device_weights, fence, require_card
 from ..models import flowlm, mimi_stream
 from ..runtime.graphs import GraphCache
-from ..runtime.streaming import fused_stream_step
+from ..runtime.streaming import fused_stream_steps
 
 
 def run_streaming_bench(batch: int = 256, frames: int = 50, prefix: int = 64,
@@ -74,14 +74,12 @@ def run_streaming_bench(batch: int = 256, frames: int = 50, prefix: int = 64,
         mimi_stream.reset_state(state)
 
     def body():
-        _, _, x1, pcm, _, eos1, done1 = fused_stream_step(
+        _, _, x1, pcm, _, eos1, done1, _, frame1 = fused_stream_steps(
             fw, mw, cache, state, x, noise_all, time_embs, frame, eos_step, done, cfg, mcfg,
-            False, -4.0, 1, eos_after)
-        x.copy_(x1)
-        eos_step.copy_(eos1)
-        done.copy_(done1)
-        frame.add_(1)
-        return pcm
+            False, -4.0, 1, eos_after, emit_i16=False)
+        for dst, src in ((x, x1), (eos_step, eos1), (done, done1), (frame, frame1)):
+            dst.copy_(src)
+        return pcm[0]
 
     def step():
         return body() if graphs is None else graphs.run("frame", dev, body)

@@ -44,9 +44,9 @@ pass:
      ``empty_like``, ``empty_strided`` and ``new_empty`` are skipped: their
      memory is uninitialised by contract. The kernel wrappers launch
      through ctypes, not aten, so their outputs are checked under the
-     wrapper's name (B1, B2 and the decode attention). The engine is
-     built with ``graphs=False``: a replayed
-     CUDA graph shows no operation to the mode. Like jax_debug_nans it
+     wrapper's name (every wrapper in ops/cuda/build.WRAPPERS). The engine
+     is built with ``graphs=False``: a replayed CUDA graph shows no
+     operation to the mode. Like jax_debug_nans it
      traps NaN, not Inf (masked scores are -1e30, finite).
   3. **Stage-boundary guards** (PTTS_SANITIZE, utils/sanitize) over a clean
      generate: they must stay silent.
@@ -76,7 +76,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from .. import api, synth
 from ..config import FlowLMConfig, MimiConfig
-from ..models import flowlm, mimi
+from ..models import flowlm
 from ..ops.attention import _scale, decode_attention_masked
 from ..ops.cuda import build
 from ..ops.cuda import fused_attention as fa
@@ -180,21 +180,19 @@ def b1_lengths(B: int, T: int) -> list:
 def kernel_launch(name: str, device) -> Callable:
     """launch(*views, B, T, H, context) of a kernel's C entry point on
     ``device``'s current stream; raises on a CUDA error."""
-    lib = build.library()
+    fn = build.entry(build.WRAPPERS[name].symbol)
 
     def launch(views: dict, B: int, T: int, H: int, context: int) -> None:
         bf16 = int(views["qkv"].dtype == torch.bfloat16)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream().cuda_stream
             if name == "causal_attention_qkv":
-                rc = lib.ptts_causal_attn_qkv(
-                    *(views[k].data_ptr() for k in ("qkv", "lengths", "cos", "sin", "out",
-                                                    "k_rot")), B, T, H, bf16, stream)
+                rc = fn(*(views[k].data_ptr() for k in ("qkv", "lengths", "cos", "sin", "out",
+                                                        "k_rot")), B, T, H, bf16, stream)
             else:
-                rc = lib.ptts_window_attn_qkv(
-                    *(views[k].data_ptr() for k in ("qkv", "cos", "sin", "out")), B, T, H,
-                    context, bf16, stream)
-        fa._raise_on(rc, name)
+                rc = fn(*(views[k].data_ptr() for k in ("qkv", "cos", "sin", "out")), B, T, H,
+                        context, bf16, stream)
+        build.raise_on(rc, name)
     return launch
 
 
@@ -254,15 +252,14 @@ def guarded_case(name: str, dtype: torch.dtype, B: int, T: int, H: int, launch: 
 def decode_launch(device) -> Callable:
     """launch(views, B, Tmax, H, splits) of the decode attention's C entry
     point on ``device``'s current stream; raises on a CUDA error."""
-    lib = build.library()
+    fn = build.entry(build.WRAPPERS["decode_attention"].symbol)
 
     def launch(views: dict, B: int, Tmax: int, H: int, splits: int) -> None:
         with torch.cuda.device(device):
-            rc = lib.ptts_decode_attn(
-                *(views[k].data_ptr() for k in ("q", "k", "v", "mask", "out", "part")), B, Tmax,
-                H, 1, splits, _scale(HEAD_DIM), int(views["q"].dtype == torch.bfloat16),
-                torch.cuda.current_stream().cuda_stream)
-        fa._raise_on(rc, "decode_attention")
+            rc = fn(*(views[k].data_ptr() for k in ("q", "k", "v", "mask", "out", "part")), B,
+                    Tmax, H, 1, splits, _scale(HEAD_DIM), int(views["q"].dtype == torch.bfloat16),
+                    torch.cuda.current_stream().cuda_stream)
+        build.raise_on(rc, "decode_attention")
     return launch
 
 
@@ -368,11 +365,11 @@ UNINITIALISED = (_aten.empty, _aten.empty_like, _aten.empty_strided, _aten.new_e
 
 def port_frame() -> str:
     """``file:line in function`` of the innermost ptts_torch frame outside
-    this module."""
-    here = os.path.abspath(__file__)
+    this module and the kernel registry."""
+    skip = {os.path.abspath(__file__), os.path.abspath(build.__file__)}
     for fr in reversed(traceback.extract_stack()):
         path = os.path.abspath(fr.filename)
-        if path.startswith(_PKG + os.sep) and path != here:
+        if path.startswith(_PKG + os.sep) and path not in skip:
             return f"{os.path.relpath(path, os.path.dirname(_PKG))}:{fr.lineno} in {fr.name}"
     return "(no ptts_torch frame)"
 
@@ -404,34 +401,22 @@ class NanTrap(TorchDispatchMode):
 
 @contextlib.contextmanager
 def checked_wrappers():
-    """The models' kernel wrappers, replaced by ones that check their
-    outputs for NaN under the wrapper's name (a ctypes launch is no aten
-    operation); yields {wrapper name: calls checked}."""
-    calls = {"causal_attention_qkv": 0, "window_attention_qkv": 0, "decode_attention": 0}
+    """The outputs of every registered kernel wrapper (ops/cuda/build.
+    WRAPPERS) checked for NaN under the wrapper's name, a ctypes launch
+    being no aten operation; yields {wrapper name: calls checked}."""
+    calls = dict.fromkeys(build.WRAPPERS, 0)
 
-    def checked(module, name):
-        inner = getattr(module, name)
+    def check(name, out):
+        calls[name] = calls.get(name, 0) + 1
+        if has_nan(out):
+            raise SanitizeError(f"[sanitize] NaN produced by kernel wrapper '{name}' at "
+                                f"{port_frame()}")
 
-        def wrapper(*args, **kw):
-            out = inner(*args, **kw)
-            calls[name] += 1
-            if has_nan(out):
-                raise SanitizeError(f"[sanitize] NaN produced by kernel wrapper '{name}' at "
-                                    f"{port_frame()}")
-            return out
-        return inner, wrapper
-
-    saved = []
+    saved, build.CHECK = build.CHECK, check
     try:
-        for module, name in ((flowlm, "causal_attention_qkv"), (mimi, "window_attention_qkv"),
-                             (flowlm, "decode_attention")):
-            inner, wrapper = checked(module, name)
-            saved.append((module, name, inner))
-            setattr(module, name, wrapper)
         yield calls
     finally:
-        for module, name, inner in saved:
-            setattr(module, name, inner)
+        build.CHECK = saved
 
 
 def trapped_generate(engine: TTSEngine, text: str, params: api.Params) -> dict:

@@ -211,28 +211,6 @@ def test_pipelined_equals_serial(ctx, k, slots):
             assert max_lsb(res_s[rid].pcm_i16, res_p[rid].pcm_i16) <= 1
 
 
-def test_pack_flags_matches_unpacked(ctx):
-    """Flags riding the PCM copy against three separate copies: equal."""
-    specs = [(t, p_(f, 40 + i, temp=0.5, **FORCED_EOS)) for i, (t, f) in enumerate(RAGGED)]
-
-    def run(pack):
-        b = pool(ctx, frames_per_step=3, pipeline=True, pack_flags=pack)
-        assert b.pack_flags is pack
-        return run_specs(b, specs)
-
-    (rids_u, res_u), (rids_p, res_p) = run(False), run(True)
-    assert rids_u == rids_p
-    for rid, (text, f) in zip(rids_u, RAGGED):
-        # forced EOS at frame 1 (min_frames 2) + eos_after 1 -> 3 frames
-        # (the 2-frame request stops at its budget)
-        assert res_p[rid].frames == res_u[rid].frames == min(3, f), text
-        np.testing.assert_array_equal(res_u[rid].pcm_i16, res_p[rid].pcm_i16)
-
-
-def test_pack_flags_off_device_bound(ctx):
-    assert pool(ctx, collect_pcm=False, pack_flags=True).pack_flags is False
-
-
 @pytest.mark.parametrize("k", [1, 3])
 def test_device_bound_mode_counts_frames(ctx, k):
     """collect_pcm=False reads back only the combined [k+1, B] flags: the

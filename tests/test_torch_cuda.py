@@ -21,7 +21,7 @@ torch = pytest.importorskip("torch")
 from ptts_torch import api, synth  # noqa: E402
 from ptts_torch.config import FlowLMConfig, MimiConfig  # noqa: E402
 from ptts_torch.ops.cuda import fused_attention as fa  # noqa: E402
-from ptts_torch.runtime.streaming import StreamingSession, fused_stream_step  # noqa: E402
+from ptts_torch.runtime.streaming import StreamingSession, fused_stream_steps  # noqa: E402
 from ptts_torch.tools import sanitize as tsan  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -230,7 +230,7 @@ def test_engine_on_card_matches_cpu(dev, tmp_path):
 
 def stream_f32(path, device, p, texts, frames):
     """Unclipped f32 PCM [B, frames * 1920] of a StreamingSession's state
-    driven through fused_stream_step with emit_i16=False (the session's
+    driven through fused_stream_steps, k = 1, emit_i16=False (the session's
     own int16 chunks clip, which would hide the drift this gate bounds)."""
     ctx = api.load_dir(path, device=device)
     engine = ctx.engine
@@ -238,11 +238,11 @@ def stream_f32(path, device, p, texts, frames):
     cache, state, x, eos_step, done, out = s.cache, s.mimi_state, s.x, s.eos_step, s.done, []
     with torch.inference_mode():
         for i in range(frames):
-            cache, state, x, pcm, _, eos_step, done = fused_stream_step(
+            cache, state, x, pcm, _, eos_step, done, _, _ = fused_stream_steps(
                 engine.fw, engine.mw, cache, state, x, s._noise_dev, s.time_embs, i, eos_step,
                 done, s.cfg, engine.mimi_cfg, False, p.eos_threshold, p.eos_min_frames,
-                s.eos_after, s.frames_each)
-            out.append(pcm.float().cpu())
+                s.eos_after, s.frames_each, emit_i16=False)
+            out.append(pcm[0].float().cpu())
     return torch.cat(out, dim=1)
 
 

@@ -14,7 +14,8 @@ eager loops.
   run the body eagerly, the next traces it into an FX graph of aten ops
   (make_fx runs it once: that is the call's step), and later calls replay
   that graph without running any Python of the body, so a Python value that
-  the body reads is baked in, as a CUDA graph bakes it. The offline loop, the
+  the body reads is baked in, as a CUDA graph bakes it, and a replay adds
+  the kernel launches the trace counted, as runtime/graphs does. The offline loop, the
   streaming session and the batcher's k = 1 and k = K steps through it are
   bit-equal to their eager runs past both rings' wraps. The card runs the
   real graphs in tests/test_torch_cuda.py and chip_smoke.py phase 13.
@@ -36,6 +37,7 @@ from ptts_torch import api as tapi  # noqa: E402
 from ptts_torch import convert  # noqa: E402
 from ptts_torch.models import flowlm as tfl  # noqa: E402
 from ptts_torch.models import mimi_stream as tms  # noqa: E402
+from ptts_torch.ops.cuda import build  # noqa: E402
 from ptts_torch.parallel import mesh as pmesh  # noqa: E402
 from ptts_torch.runtime import batching, graphs, streaming  # noqa: E402
 from ptts_torch.runtime.batching import ContinuousBatcher  # noqa: E402
@@ -55,10 +57,21 @@ def close(got, want, tol=1e-4):
     assert np.abs(got - want).max() <= tol * max(np.abs(want).max(), 1e-30)
 
 
+class _Traced:
+    """A traced body in the place of a CUDA graph: replay() runs it."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def replay(self):
+        self.outputs = self.fn()
+
+
 class ReplayOnCPU(graphs.GraphCache):
     """GraphCache.run with a CUDA graph's semantics on the CPU (see the
     module docstring): ``warmup`` eager calls, then a trace, then
-    replays. ``calls`` counts the calls by kind."""
+    replays, which add the kernel launches counted in the traced body as
+    runtime/graphs does. ``calls`` counts the calls by kind."""
 
     def __init__(self):
         super().__init__()
@@ -72,7 +85,8 @@ class ReplayOnCPU(graphs.GraphCache):
     def run(self, key, device, body, warmup=graphs.WARMUP):
         if key in self.traced:
             self.calls["replay"] += 1
-            return self.traced[key]()
+            graphs._replay(self.traced[key])
+            return self.traced[key].graph.outputs
         self.seen[key] = self.seen.get(key, 0) + 1
         if self.seen[key] <= warmup:
             self.calls["eager"] += 1
@@ -83,7 +97,14 @@ class ReplayOnCPU(graphs.GraphCache):
             outs.append(body())
             return outs[-1]
 
-        self.traced[key] = make_fx(traced)()
+        entry = self.traced[key] = graphs._Entry()
+        before = graphs._launch_counts()
+        entry.graph = _Traced(make_fx(traced)())
+        # the trace ran the body once: its launches count for this call
+        entry.launches = graphs._held_launches(before)
+        for fn, n, shapes in entry.launches:
+            fn.launches += n
+            fn.shapes.update(shapes)
         self.calls["trace"] += 1
         return outs[0]
 
@@ -426,9 +447,9 @@ def serve(engine, mesh=None, n=14, **kw):
 
 @pytest.mark.parametrize("kw", [dict(frames_per_step=1),
                                 dict(frames_per_step=4, split_admit=True),
-                                dict(frames_per_step=4, pipeline=True, pack_flags=False),
+                                dict(frames_per_step=4, pipeline=True),
                                 dict(frames_per_step=3, collect_pcm=False, pipeline=True)],
-                         ids=["k1", "k4_split", "k4_pipelined_unpacked", "k3_device_bound"])
+                         ids=["k1", "k4_split", "k4_pipelined", "k3_device_bound"])
 def test_batcher_replay_equals_eager(ctx, monkeypatch, kw):
     """The batcher's k-frame shard step replayed: results (PCM, frames)
     bit-equal to the eager batcher's, past the 16-column FlowLM ring and
@@ -447,6 +468,28 @@ def test_batcher_replay_equals_eager(ctx, monkeypatch, kw):
     assert b._graphs.calls["replay"] > 0
     assert {key[1] for key in b._graphs.traced} <= {1, kw["frames_per_step"] - 1,
                                                      kw["frames_per_step"]}
+
+
+def test_replay_counts_a_kernel_registered_anywhere(monkeypatch):
+    """A wrapper registered with ops/cuda/build.kernel, here inside the
+    test, is counted at every replay of a body that launched it: the
+    replay reads the registry, not a list of kernels."""
+    monkeypatch.setattr(build, "WRAPPERS", dict(build.WRAPPERS))
+    monkeypatch.setattr(build, "SIGNATURES", dict(build.SIGNATURES))
+
+    @build.kernel("ptts_registered_in_a_test", [])
+    def doubled(x):
+        doubled.launches += 1                       # what build.launch counts on the card
+        doubled.shapes[("f32", x.shape[0], 1)] += 1
+        return x * 2
+
+    assert build.WRAPPERS["doubled"] is doubled
+    cache, x = ReplayOnCPU(), torch.ones(3)
+    outs = [cache.run("doubled", "cpu", lambda: doubled(x)) for _ in range(graphs.WARMUP + 4)]
+    assert cache.calls == {"eager": graphs.WARMUP, "trace": 1, "replay": 3}
+    assert all(torch.equal(o, 2 * x) for o in outs)
+    assert doubled.launches == graphs.WARMUP + 4
+    assert doubled.shapes == {("f32", 3, 1): graphs.WARMUP + 4}
 
 
 def test_sharded_batcher_replay_equals_eager(ctx, monkeypatch):

@@ -252,8 +252,9 @@ def test_start_and_step_match_jax(contexts):
 
 
 def test_fused_stream_steps_equal_single_steps(contexts):
-    """k = 3 frames with one Mimi chunk against 3 one-frame steps, through
-    stream 0 ending at frame 0 (eos_after 0) and stream 1 running on."""
+    """k = 3 frames with one Mimi chunk against 3 calls of the same body at
+    k = 1, through stream 0 ending at frame 0 (eos_after 0) and stream 1
+    running on."""
     tctx, _ = contexts
     engine = tctx.engine
     p = japi.Params(num_frames=4, num_steps=1, seed=2, temp=0.5, eos_enabled=True,
@@ -268,17 +269,20 @@ def test_fused_stream_steps_equal_single_steps(contexts):
                            s.eos_after, s.frames_each)
         a = sessions[0]
         out = tst.fused_stream_steps(*args(a), torch.zeros(2, dtype=torch.int32), a.eos_step,
-                                     a.done, *flags(a), None, k=3, pack_flags=True)
+                                     a.done, *flags(a), None, k=3)
         pcm_k, eos_k, eos_step, done, wd_k, fidx = out[3:]
         b = sessions[1]
         singles, was = [], []
         cache, state, x, eos_step1, done1 = b.cache, b.mimi_state, b.x, b.eos_step, b.done
+        fidx1 = torch.zeros(2, dtype=torch.int32)
         for i in range(3):
-            was.append(done1)
-            cache, state, x, pcm, eos, eos_step1, done1 = tst.fused_stream_step(
-                engine.fw, engine.mw, cache, state, x, b._noise_dev, b.time_embs, i,
-                eos_step1, done1, *flags(b), emit_i16=True)
-            singles.append(pcm)
+            cache, state, x, pcm, eos, eos_step1, done1, wd, fidx1 = tst.fused_stream_steps(
+                engine.fw, engine.mw, cache, state, x, b._noise_dev, b.time_embs, fidx1,
+                eos_step1, done1, *flags(b), None, k=1)
+            assert pcm.shape == (1, 2, MC.frame_samples + 2) and eos.shape == (1, 2)
+            np.testing.assert_array_equal(pcm[0, :, -1].numpy(), done1.numpy())
+            singles.append(pcm[0, :, :-2])
+            was.append(wd[0])
     assert pcm_k.shape == (3, 2, MC.frame_samples + 2) and pcm_k.dtype == torch.int16
     assert max_lsb(pcm_k[..., :-2].numpy(), torch.stack(singles).numpy()) <= 1
     np.testing.assert_array_equal(wd_k.numpy(), torch.stack(was).numpy())
@@ -287,7 +291,7 @@ def test_fused_stream_steps_equal_single_steps(contexts):
     assert (pcm_k[..., -1] == done.to(torch.int16)).all()
     np.testing.assert_array_equal(done.numpy(), done1.numpy())
     np.testing.assert_array_equal(eos_step.numpy(), eos_step1.numpy())
-    assert fidx.tolist() == [3, 3] and eos_k.shape == (3, 2)
+    assert fidx.tolist() == fidx1.tolist() == [3, 3] and eos_k.shape == (3, 2)
 
 
 def test_bf16_session_stays_near_f32_reference(contexts, monkeypatch):

@@ -50,6 +50,7 @@ from ptts_torch import bench, synth  # noqa: E402
 from ptts_torch import cli as tcli  # noqa: E402
 from ptts_torch.models import flowlm as tfl  # noqa: E402
 from ptts_torch.ops import attention as tattn  # noqa: E402
+from ptts_torch.ops.cuda import build  # noqa: E402
 from ptts_torch.ops.cuda import fused_attention as fa  # noqa: E402
 from ptts_torch.runtime.engine import TTSEngine  # noqa: E402
 from ptts_torch.tools import bench_batch_sweep, bench_batcher_sweep  # noqa: E402
@@ -204,13 +205,38 @@ def test_nan_trap_ignores_empty():
 def test_nan_trap_checks_the_kernel_wrappers(monkeypatch):
     """The wrappers' ctypes launch is no aten op: their output is checked
     by the wrapper's name."""
-    monkeypatch.setattr(tfl, "causal_attention_qkv",
+    monkeypatch.setattr(fa, "causal_attention_qkv_plain",
                         lambda *a, **k: (torch.full((1,), float("nan")), torch.zeros(1)))
+    qkv, lengths = torch.zeros(1, 2, 3 * 64), torch.full((1,), 2, dtype=torch.int32)
     with tsan.checked_wrappers() as calls:
         with pytest.raises(tsan.SanitizeError, match="kernel wrapper 'causal_attention_qkv'"):
-            tfl.causal_attention_qkv()
+            fa.causal_attention_qkv(qkv, lengths, num_heads=1, head_dim=64)
     assert calls["causal_attention_qkv"] == 1
-    assert tfl.causal_attention_qkv()[0].isnan().all()   # restored
+    assert build.CHECK is None                                       # restored
+    assert fa.causal_attention_qkv(qkv, lengths, num_heads=1, head_dim=64)[0].isnan().all()
+
+
+def test_checked_wrappers_cover_every_registered_kernel():
+    """checked_wrappers lists no wrapper: it covers every one registered in
+    ops/cuda/build, the hybrid's Mamba-2 frame step included, and names a
+    NaN in ssm_step's plain output (a NaN D skip weight)."""
+    from ptts_torch.ops.cuda import ssm_step as tss
+
+    B, H, P, N = 2, 2, 4, 3
+    C = H * P + 2 * N
+    g = torch.Generator().manual_seed(0)
+    xbc, dt = torch.randn(B, C, generator=g), torch.randn(B, H, generator=g)
+    ssm, conv = torch.randn(B, H, P, N, generator=g), torch.randn(B, 3, C, generator=g)
+    params = [torch.randn(C, 4, generator=g), torch.randn(C, generator=g),
+              torch.zeros(H), torch.zeros(H), torch.tensor([1.0, float("nan")])]
+    with tsan.checked_wrappers() as calls:
+        assert set(calls) == set(build.WRAPPERS) >= {
+            "causal_attention_qkv", "window_attention_qkv", "decode_attention", "ssm_step"}
+        with pytest.raises(tsan.SanitizeError, match="NaN produced by kernel wrapper 'ssm_step'"):
+            tss.ssm_step(xbc, dt, ssm, conv, *params)
+        params[-1] = torch.ones(H)
+        assert torch.isfinite(tss.ssm_step(xbc, dt, ssm, conv, *params)).all()
+    assert calls["ssm_step"] == 2 and sum(calls.values()) == 2
 
 
 def plain_launch(views, B, T, H, context):

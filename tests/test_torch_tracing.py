@@ -25,7 +25,7 @@ torch = pytest.importorskip("torch")
 
 from helpers import TINY_FLOWLM, TINY_MIMI, write_model_dir  # noqa: E402
 from ptts_torch import api as tapi  # noqa: E402
-from ptts_torch.ops.cuda import decode_attention  # noqa: E402
+from ptts_torch.ops.cuda import build, decode_attention  # noqa: E402
 from ptts_torch.ops.cuda import fused_attention as fa  # noqa: E402
 from ptts_torch.ops.cuda import markers  # noqa: E402
 from ptts_torch.runtime import graphs, streaming  # noqa: E402
@@ -141,11 +141,12 @@ def test_profiler_range_only_while_recording(ring):
 def test_counts_held_in_a_capture_count_at_each_replay(ring, monkeypatch):
     """GraphCache takes a capture's counts (the tracer's and the kernel
     wrappers') back off, then adds them at every replay."""
-    for fn in graphs._COUNTED:
+    for fn in build.WRAPPERS.values():
         monkeypatch.setattr(fn, "launches", fn.launches)
         monkeypatch.setattr(fn, "shapes", collections.Counter(fn.shapes))
     w = fa.window_attention_qkv
     n0, s0 = w.launches, collections.Counter(w.shapes)
+    c0 = fa.causal_attention_qkv.launches
     entry = graphs._Entry()
     before = graphs._launch_counts()
     with timing.capture_counts() as held:
@@ -159,15 +160,15 @@ def test_counts_held_in_a_capture_count_at_each_replay(ring, monkeypatch):
         graphs._replay(entry)
     assert w.launches == n0 + 3 and w.shapes[("bf16", 2, 1024)] == s0[("bf16", 2, 1024)] + 3
     assert timing.counters() == {"in.body": 6}
-    assert fa.causal_attention_qkv.launches == before[0][1]
+    assert fa.causal_attention_qkv.launches == c0
 
 
 def test_decode_attention_launches_in_a_capture_count_at_each_replay(monkeypatch):
     """The decode attention's wrapper is counted like B1's and B2's: a
     launch in a captured body counts once per replay, by its shape."""
     d = decode_attention.decode_attention
-    assert d in graphs._COUNTED
-    for fn in graphs._COUNTED:
+    assert build.WRAPPERS["decode_attention"] is d
+    for fn in build.WRAPPERS.values():
         monkeypatch.setattr(fn, "launches", fn.launches)
         monkeypatch.setattr(fn, "shapes", collections.Counter(fn.shapes))
     n0, shape = d.launches, ("bf16", 256, 544)
@@ -282,7 +283,7 @@ def test_engine_stats_list_the_new_aggregates(ctx, ring):
 
 @pytest.mark.parametrize("k", [1, 3])
 def test_frame_body_marks_flowlm_mimi_end(ctx, monkeypatch, k):
-    """fused_stream_step (k = 1) and fused_stream_steps launch the markers
+    """fused_stream_steps, at k = 1 and at k = 3, launches the markers
     before the FlowLM frames, before the Mimi decode and at the end."""
     calls = []
     monkeypatch.setattr(markers, "device_mark", lambda which, like: calls.append(
